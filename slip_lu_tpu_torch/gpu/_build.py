@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``slip_lu_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, which ``ctypes`` loads (no PyTorch headers, so
-a build takes seconds). The library lands in ``slip_lu_tpu_torch/_build``
+The sources compile with ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and link into one shared library with a plain C
+interface, which ``ctypes`` loads (no PyTorch headers, so a build takes
+seconds). The library lands in ``slip_lu_tpu_torch/_build``
 (git-ignored), named by a hash of the sources, at the first launch of a
 kernel; later launches in the process, and later processes on the same
 checkout, reuse it.
@@ -23,8 +24,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,8 @@ _SIGNATURES = {
     # cnts ev1 ev2 val SMT GT TZ X flags obuf | nc C1 C2 W8 Ws8 WNS WQ WV
     # WI8 L nwarps | stream
     "slip_solve_stream": [_P] * 10 + [_I] * 11 + [_P],
+    # SMT GT_old TZ GT_new | rows smt_stride W8 WIo WIn steps | stream
+    "slip_relift_gt": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 
@@ -87,14 +91,34 @@ def library() -> KernelLibrary:
     if not os.path.exists(so):
         os.makedirs(_BUILD, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc()] + NVCC_FLAGS + [
-            "-o", tmp, *[p for p in srcs if p.endswith(".cu")]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        jobs = []
+        for src in (p for p in srcs if p.endswith(".cu")):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            jobs.append((obj, subprocess.Popen(
+                [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for obj, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if not failed:
+            res = subprocess.run(
+                [nvcc] + ARCH + ["-shared", "-o", tmp]
+                + [obj for obj, _ in jobs], capture_output=True, text=True)
+            log += res.stdout + res.stderr
+            failed += [res.returncode] if res.returncode else []
+        for obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, so)
     _LIB = KernelLibrary(ctypes.CDLL(so), so, seconds, log)
     return _LIB

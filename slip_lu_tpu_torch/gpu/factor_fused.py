@@ -1,11 +1,13 @@
 """The fused exact solve's device half: factor stream, solve stream, and
 the one flat result vector.
 
-Counterpart of ``slip_lu_tpu/tpu/factor_fused.py`` for one width segment,
-one system (G = 1) and right-hand sides run one after another. The
-factor stream (kernel K2, ``csrc/fused.cu:factor_stream_kernel``) runs,
-per chunk, the pivot heads, the Hensel lift of the new pivot inverses,
-and two passes of
+Counterpart of ``slip_lu_tpu/tpu/factor_fused.py`` for one system (G = 1),
+with right-hand sides run one after another, width segments (the tables
+widen between segments, GT re-lifts in kernel K4, ``gpu/relift.py``) and
+grouped (subtree-local) streams (``ndet``, ``nxx``, the extra value
+slots). The factor stream (kernel K2,
+``csrc/fused.cu:factor_stream_kernel``) runs, per chunk, the pivot heads,
+the Hensel lift of the new pivot inverses, and two passes of
 
     out = (val[t] * SMT[m] - val[a] * B[b]) / rho[d];
 
@@ -42,6 +44,7 @@ import torch
 
 from ..ops import device_limbs as dl
 from . import _build
+from .relift import relift_gt, widen_tc, widen_val
 
 _I32 = torch.int32
 
@@ -94,11 +97,15 @@ def stream_tensors(es, device) -> StreamTensors:
         fhm_host=fhm, scnt_host=scnt)
 
 
-def val_tensor(avals, init_pos, E: int, W8: int, device) -> torch.Tensor:
+def val_tensor(avals, init_pos, E: int, W8: int, device, extra_pos=None,
+               extra_vals=None) -> torch.Tensor:
     """A's values packed as the [r8(E+1), W8] two's-complement value
-    table (slot E, the dummy, stays zero)."""
+    table (slot E, the dummy, stays zero). Grouped streams add their
+    constant slots (``extra_pos`` <- ``extra_vals``)."""
     val = np.zeros((_r8(E + 1), W8), dtype=np.int32)
     val[np.asarray(init_pos)] = ints_to_tc_rows(avals, W8)
+    if extra_pos is not None and len(extra_pos):
+        val[np.asarray(extra_pos)] = ints_to_tc_rows(extra_vals, W8)
     return torch.from_numpy(val).to(device)
 
 
@@ -136,6 +143,19 @@ def _check_kernel_args(what: str, device, widths: dict, **tensors) -> None:
         if name in widths and t.shape[-1] != widths[name]:
             raise ValueError(f"{what}: {name} has rows of {t.shape[-1]} "
                              f"limbs, the launch needs {widths[name]}")
+
+
+def chunk_range(st: StreamTensors, lo: int, hi: int,
+                factor: bool) -> StreamTensors:
+    """The chunks [lo, hi) of the factor (or the solve) stream; the other
+    stream is kept whole. Slices along dim 0 stay contiguous views."""
+    if factor:
+        return dataclasses.replace(
+            st, fhm=st.fhm[lo:hi], fev1=st.fev1[lo:hi], fev2=st.fev2[lo:hi],
+            fhm_host=st.fhm_host[lo:hi])
+    return dataclasses.replace(
+        st, scnt=st.scnt[lo:hi], sev1=st.sev1[lo:hi], sev2=st.sev2[lo:hi],
+        scnt_host=st.scnt_host[lo:hi])
 
 
 def _stream_args(st: "StreamTensors", factor: bool) -> dict:
@@ -235,23 +255,33 @@ def _lift_ref(lifts, GT, TZ, *, WI8):
 # K2: the factor stream
 # ---------------------------------------------------------------------------
 
-def _factor_tables(val_in, n, W8, WI8):
+def _factor_tables(val_in, n, W8, WI8, tables):
+    """The stream's tables: the identity start of a first segment, or
+    copies of the incoming (widened, re-lifted) ones of a later one."""
     n8 = _r8(n + 2)
     dev = val_in.device
+    flags = torch.zeros(8, dtype=_I32, device=dev)
+    if tables is not None:
+        SMT, GT, TZ = tables
+        want = ((n8, W8), (n8, WI8), (n8, 8))
+        if tuple(tuple(t.shape) for t in tables) != want:
+            raise ValueError(f"factor_stream: incoming tables "
+                             f"{[tuple(t.shape) for t in tables]}, the "
+                             f"segment needs {list(want)}")
+        return val_in.clone(), SMT.clone(), GT.clone(), TZ.clone(), flags
     SMT = torch.zeros((n8, W8), dtype=_I32, device=dev)
     GT = torch.zeros((n8, WI8), dtype=_I32, device=dev)
     TZ = torch.zeros((n8, 8), dtype=_I32, device=dev)
     SMT[0, 0] = 1                     # rho_{-1} = 1, its inverse 1, tz 0
     GT[0, 0] = 1
-    flags = torch.zeros(8, dtype=_I32, device=dev)
     return val_in.clone(), SMT, GT, TZ, flags
 
 
 def factor_stream_ref(st: StreamTensors, val_in, n: int, W8: int, WN: int,
-                      WI8: int):
+                      WI8: int, tables=None):
     """Plain version of ``factor_stream`` (any device).
     Returns (val, SMT, GT, TZ, flags)."""
-    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8)
+    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables)
     WQ, WV = _moduli(W8, W8, WI8)
     H = st.H
     for c in range(st.fhm_host.shape[0]):
@@ -268,17 +298,22 @@ def factor_stream_ref(st: StreamTensors, val_in, n: int, W8: int, WN: int,
 
 
 def factor_stream(st: StreamTensors, val_in, n: int, W8: int, WN: int,
-                  WI8: int):
-    """Run the factor stream (K2). Returns (val, SMT, GT, TZ, flags)."""
+                  WI8: int, tables=None):
+    """Run the factor stream (K2) over a table of n + 2 rows (n = the
+    determinant row: ``ndet`` for grouped streams) at segment width W8
+    with GT width WI8. tables: None for the first segment, else the
+    incoming (SMT, GT, TZ) at this segment's widths, never written.
+    Returns (val, SMT, GT, TZ, flags)."""
     if val_in.device.type == "cpu":
-        return factor_stream_ref(st, val_in, n, W8, WN, WI8)
+        return factor_stream_ref(st, val_in, n, W8, WN, WI8, tables)
     _require_cuda(val_in, "factor_stream")
+    tabs = {} if tables is None else dict(zip(("SMT", "GT", "TZ"), tables))
     _check_kernel_args("factor_stream", val_in.device,
                        {"val_in": W8, "fhm": 3 * st.H + 4, "fev1": st.C1,
-                        "fev2": st.C2}, val_in=val_in,
+                        "fev2": st.C2}, val_in=val_in, **tabs,
                        **_stream_args(st, True))
     lib = _build.library().lib
-    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8)
+    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables)
     WQ, WV = _moduli(W8, W8, WI8)
     L = max(WN, WQ, WV, WI8, W8)
     obuf = torch.empty((max(st.C1, st.C2), W8), dtype=_I32,
@@ -302,11 +337,11 @@ factor_stream.launches = 0
 # ---------------------------------------------------------------------------
 
 def solve_stream_ref(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
-                     Ws8: int, WNS: int, WI8: int):
+                     Ws8: int, WNS: int, WI: int):
     """Plain version of ``solve_stream`` (any device). Returns (X, flags)."""
     X = X_in.clone()
     flags = torch.zeros(8, dtype=_I32, device=X.device)
-    WQ, WV = _moduli(Ws8, W8, WI8)
+    WQ, WV = _moduli(Ws8, W8, WI)
     for c in range(st.scnt_host.shape[0]):
         cn = st.scnt_host[c]
         _pass_ref(st.sev1[c], int(cn[1]), X, val, X, SMT, GT, TZ, flags, 3,
@@ -317,23 +352,24 @@ def solve_stream_ref(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
 
 
 def solve_stream(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
-                 Ws8: int, WNS: int, WI8: int):
-    """Run the solve stream (K3) over X_in [r8(n+1), Ws8].
-    Returns (X, flags)."""
+                 Ws8: int, WNS: int, WI: int):
+    """Run the solve stream (K3) over X_in [r8(n+1+nxx), Ws8] with GT at
+    width WI (the factor stream's last GT width, re-lifted if the solve
+    quotient needs more). Returns (X, flags)."""
     if X_in.device.type == "cpu":
         return solve_stream_ref(st, val, SMT, GT, TZ, X_in, W8, Ws8, WNS,
-                                WI8)
+                                WI)
     _require_cuda(X_in, "solve_stream")
     _check_kernel_args("solve_stream", X_in.device,
-                       {"val": W8, "SMT": W8, "GT": WI8, "TZ": 8,
+                       {"val": W8, "SMT": W8, "GT": WI, "TZ": 8,
                         "X_in": Ws8, "scnt": 4, "sev1": st.C1,
                         "sev2": st.C2}, val=val, SMT=SMT, GT=GT, TZ=TZ,
                        X_in=X_in, **_stream_args(st, False))
     lib = _build.library().lib
     X = X_in.clone()
     flags = torch.zeros(8, dtype=_I32, device=X.device)
-    WQ, WV = _moduli(Ws8, W8, WI8)
-    L = max(WNS, WQ, WV, WI8, Ws8)
+    WQ, WV = _moduli(Ws8, W8, WI)
+    L = max(WNS, WQ, WV, WI, Ws8)
     obuf = torch.empty((max(st.C1, st.C2), Ws8), dtype=_I32,
                        device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -341,7 +377,7 @@ def solve_stream(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
         st.scnt.data_ptr(), st.sev1.data_ptr(), st.sev2.data_ptr(),
         val.data_ptr(), SMT.data_ptr(), GT.data_ptr(), TZ.data_ptr(),
         X.data_ptr(), flags.data_ptr(), obuf.data_ptr(), st.scnt.shape[0],
-        st.C1, st.C2, W8, Ws8, WNS, WQ, WV, WI8, L, _nwarps(L), stream)
+        st.C1, st.C2, W8, Ws8, WNS, WQ, WV, WI, L, _nwarps(L), stream)
     _build.check(rc, "solve_stream")
     solve_stream.launches += 1
     return X, flags
@@ -354,11 +390,13 @@ solve_stream.launches = 0
 # the whole device half
 # ---------------------------------------------------------------------------
 
-def x_tensor(b_col: torch.Tensor, n: int, Ws8: int) -> torch.Tensor:
-    """One right-hand side [n, Wb] -> X [r8(n+1), Ws8], b sign-extended
-    from Wb to Ws8 limbs (row n is the solve stream's dummy)."""
+def x_tensor(b_col: torch.Tensor, n: int, Ws8: int, nxx: int = 0
+             ) -> torch.Tensor:
+    """One right-hand side [n, Wb] -> X [r8(n+1+nxx), Ws8], b sign-extended
+    (or cut) from Wb to Ws8 limbs. Row n is the solve stream's dummy, the
+    nxx rows after it the grouped stream's clone rows."""
     Wb = b_col.shape[1]
-    X = torch.zeros((_r8(n + 1), Ws8), dtype=_I32, device=b_col.device)
+    X = torch.zeros((_r8(n + 1 + nxx), Ws8), dtype=_I32, device=b_col.device)
     X[:n, :min(Wb, Ws8)] = b_col[:, :Ws8]
     if Wb < Ws8:
         fill = torch.where(b_col[:, Wb - 1:Wb] >= 0x8000, 0xFFFF, 0)
@@ -367,20 +405,69 @@ def x_tensor(b_col: torch.Tensor, n: int, Ws8: int) -> torch.Tensor:
 
 
 def fused_solve_all(n: int, W8: int, Ws8: int, WN: int, WNS: int, WI8: int,
-                    st: StreamTensors, val_in, b_rows) -> torch.Tensor:
+                    st: StreamTensors, val_in, b_rows, segments=None,
+                    ssegments=None, ndet=None, nxx: int = 0) -> torch.Tensor:
     """Factor stream, then each right-hand side's solve stream; returns
-    the reference's flat int32 vector for one segment and G = 1:
+    the reference's flat int32 vector for G = 1:
 
-        [fsing, fovf] [det (W8 limbs)] [per rhs: ssing, sovf, X (n*Ws8)]
+        [per factor segment: fsing, fovf] [det (W8 limbs)]
+        [per rhs: per solve segment: ssing, sovf; X (n*Ws8)]
 
-    b_rows: [nrhs, n, Wb] int32 limb rows on the same device as val_in."""
-    val, SMT, GT, TZ, fflags = factor_stream(st, val_in, n, W8, WN, WI8)
-    parts = [fflags[:2], SMT[n, :W8]]
+    segments / ssegments: (lo, hi, W8s) chunk ranges of the factor / solve
+    stream with nondecreasing widths ending at W8 / Ws8 (None: one
+    full-width segment). val_in is packed at segments[0]'s width. Between
+    factor segments the value table and SMT sign-extend and GT re-lifts
+    (K4); between solve segments X sign-extends (a Hensel inverse truncates
+    to an inverse mod any smaller power, so GT needs no re-lift there).
+    ndet: the table row of the determinant (grouped streams; default n);
+    nxx: the grouped solve stream's extra X rows. b_rows: [nrhs, n, Wb]
+    int32 limb rows on the same device as val_in. WN and WNS are kept for
+    the reference's signature: every segment derives its own."""
+    if ndet is None:
+        ndet = n
+    if segments is None:
+        segments = ((0, st.fhm.shape[0], W8),)
+    S = len(segments)
+    val, SMT, GT, TZ = val_in, None, None, None
+    parts, prev = [], None
+    for lo, hi, W8s in segments:
+        # segmented runs lift head inverses only to the segment's short
+        # division modulus; GT re-lifts at each boundary (K4), and once
+        # more below if the solve quotient needs more
+        WQf = _r8(W8s + 2)
+        WIs = max(WQf, WI8) if S == 1 else WQf
+        tables = None
+        if prev is not None:
+            pW8, pWI = prev
+            val = widen_val(val, pW8, W8s)
+            SMT = widen_tc(SMT, pW8, W8s)
+            GT = relift_gt(SMT, GT, TZ, W8s, pWI, WIs)
+            tables = (SMT, GT, TZ)
+        val, SMT, GT, TZ, fflags = factor_stream(
+            chunk_range(st, lo, hi, True), val, ndet, W8s, _r8(2 * W8s + 2),
+            WIs, tables)
+        parts.append(fflags[:2])
+        prev = (W8s, WIs)
+    parts.append(SMT[ndet, :W8])
+    if ssegments is None:
+        ssegments = ((0, st.scnt.shape[0], Ws8),)
+    WQs = min(WI8, _r8(Ws8 + 2))      # the solve stream's quotient modulus
+    WIf = prev[1]
+    if WIf < WQs:
+        GT = relift_gt(SMT, GT, TZ, W8, WIf, WQs)
+        WIf = WQs
     for c in range(b_rows.shape[0]):
-        X, sflags = solve_stream(st, val, SMT, GT, TZ,
-                                 x_tensor(b_rows[c], n, Ws8), W8, Ws8, WNS,
-                                 WI8)
-        parts += [sflags[:2], X[:n].reshape(-1)]
+        pWs = ssegments[0][2]
+        X = x_tensor(b_rows[c], n, pWs, nxx)
+        for lo, hi, Ws_s in ssegments:
+            if Ws_s != pWs:
+                X = widen_tc(X, pWs, Ws_s)
+            X, sflags = solve_stream(chunk_range(st, lo, hi, False), val,
+                                     SMT, GT, TZ, X, W8, Ws_s,
+                                     _r8(W8 + Ws_s + 2), WIf)
+            parts.append(sflags[:2])
+            pWs = Ws_s
+        parts.append(X[:n, :Ws8].reshape(-1))
     return torch.cat(parts)
 
 

@@ -169,10 +169,10 @@ def test_slice_matches_reference_fused_solve(monkeypatch):
                                          st_ref.retries)
 
 
-def _always_singular(n, W8, Ws8, WN, WNS, WI8, st, val_in, b_rows):
+def _always_singular(n, W8, Ws8, WN, WNS, WI8, st, val_in, b_rows, **kw):
     """A device half whose factor stream flags a singular pivot (and no
     overflow) on every call, as only a kernel fault could under the
-    oracle's pinned pivots."""
+    oracle's pinned pivots (one segment on each stream, as tri20 plans)."""
     flat = torch.zeros(2 + W8 + b_rows.shape[0] * (2 + n * Ws8),
                        dtype=torch.int32)
     flat[0] = 1

@@ -143,6 +143,119 @@ def test_wide_backslash_on_card_matches_oracle(cuda):
         assert x.x[i, 0] == x_host.x[i, 0], i
 
 
+def _relift_tables(seed, n8, W8, WIo):
+    """SMT, GT_old, TZ of n8 rows: row 0 the identity, then true rho and
+    inverse pairs, then seeds that are no inverse, the last rows zero."""
+    rng = np.random.default_rng(seed)
+    SMT = np.zeros((n8, W8), np.int32)
+    GT = np.zeros((n8, WIo), np.int32)
+    TZ = np.zeros((n8, 8), np.int32)
+    SMT[0, 0] = GT[0, 0] = 1
+    half = n8 // 2
+    for r in range(1, half):
+        v = int(rng.integers(1, 2**62)) ** (W8 // 8)
+        v = (v | 1) << int(rng.integers(0, 40))
+        v = -v if rng.random() < 0.5 else v
+        tz = (v & -v).bit_length() - 1
+        SMT[r] = ff.ints_to_tc_rows([v], W8)[0]
+        TZ[r] = tz
+        GT[r] = ff.ints_to_tc_rows([pow(v >> tz, -1, 1 << (16 * WIo))],
+                                   WIo)[0]
+    SMT[half:n8 - 3] = rng.integers(0, 1 << 16, (n8 - 3 - half, W8))
+    GT[half:n8 - 3] = rng.integers(0, 1 << 16, (n8 - 3 - half, WIo))
+    TZ[half:n8 - 3] = rng.integers(0, 16 * W8, (n8 - 3 - half, 1))
+    return [torch.from_numpy(t) for t in (SMT, GT, TZ)]
+
+
+@pytest.mark.parametrize("n8,W8,WIo,WIn", [
+    (13024, 112, 24, 120),     # uni100k's factor boundary: three steps
+    (1024, 256, 32, 264),      # the W8 = 256 regime: four steps
+    (64, 16, 24, 24),          # not wider: truncates, launches nothing
+])
+def test_relift_kernel_matches_plain_version(cuda, n8, W8, WIo, WIn):
+    from slip_lu_tpu_torch.gpu import relift as rl
+    SMT, GT, TZ = [t.to(cuda) for t in _relift_tables(n8, n8, W8, WIo)]
+    before = rl.relift_gt.launches
+    got = rl.relift_gt(SMT, GT, TZ, W8, WIo, WIn)
+    torch.cuda.synchronize()
+    want = rl.relift_gt_ref(SMT, GT, TZ, W8, WIo, WIn)
+    assert got.shape == (n8, WIn) and torch.equal(got, want)
+    assert rl.relift_gt.launches == before + (WIn > WIo)
+
+
+def test_segmented_device_half_matches_plain_versions(cuda):
+    """fused_solve_all with three factor and two solve segments: K2 with
+    incoming (widened, re-lifted) tables, K3 at the re-lifted GT width and
+    K4 at each boundary give the plain versions' flat vector bit for bit."""
+    from slip_lu_tpu_torch.gpu import relift as rl
+    A, b = _read("tri200")
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    n = A.n
+    q = np.asarray(port.analyze(A, port.Options()).q, np.int64)
+    sched, r = build_schedule_best(A, q, None)
+    es = build_event_stream(sched, 2, 32, 128)
+    Aq = _permute_cols(A, q)
+    avals = [int(Aq.x[i]) for c in range(n)
+             for i in range(int(Aq.p[c]), int(Aq.p[c + 1]))]
+    W8, Ws8 = 40, 72
+    WN, WNS, WI8 = ff._r8(2 * W8 + 2), ff._r8(W8 + Ws8 + 2), ff._r8(Ws8 + 2)
+    nf, ns = es.factor.nchunks, es.solve.nchunks
+    segs = ((0, nf // 3, 8), (nf // 3, 2 * nf // 3, 16), (2 * nf // 3, nf,
+                                                           W8))
+    ssegs = ((0, ns // 2, 40), (ns // 2, ns, Ws8))
+    st = ff.stream_tensors(es, cuda)
+    val = ff.val_tensor(avals, es.init_pos, es.nnz, 8, cuda)
+    bcol = [int(bz.x[int(r[k]), 0]) for k in range(n)]
+    b_rows = torch.from_numpy(ff.ints_to_tc_rows(bcol, 4)[None]).to(cuda)
+    before = (ff.factor_stream.launches, ff.solve_stream.launches,
+              rl.relift_gt.launches)
+    got = ff.fused_solve_all(n, W8, Ws8, WN, WNS, WI8, st, val, b_rows,
+                             segments=segs, ssegments=ssegs)
+    torch.cuda.synchronize()
+    # the same function on CPU copies runs the plain versions
+    want = ff.fused_solve_all(n, W8, Ws8, WN, WNS, WI8,
+                              ff.stream_tensors(es, "cpu"), val.cpu(),
+                              b_rows.cpu(), segments=segs, ssegments=ssegs)
+    assert torch.equal(got.cpu(), want)
+    # two boundaries, then WI 24 -> the solve quotient's 80 limbs
+    assert (ff.factor_stream.launches, ff.solve_stream.launches,
+            rl.relift_gt.launches) == (before[0] + 3, before[1] + 2,
+                                       before[2] + 3)
+
+
+def test_factor_kernel_with_incoming_tables(cuda):
+    """K2 on a later segment (tables handed in, never written) against its
+    plain version on the same widened, re-lifted tables."""
+    from slip_lu_tpu_torch.gpu import relift as rl
+    A, _ = _read("tri200")
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    n = A.n
+    q = np.asarray(port.analyze(A, port.Options()).q, np.int64)
+    sched, _ = build_schedule_best(A, q, None)
+    es = build_event_stream(sched, 2, 32, 128)
+    Aq = _permute_cols(A, q)
+    avals = [int(Aq.x[i]) for c in range(n)
+             for i in range(int(Aq.p[c]), int(Aq.p[c + 1]))]
+    st = ff.stream_tensors(es, cuda)
+    mid = es.factor.nchunks // 2
+    val = ff.val_tensor(avals, es.init_pos, es.nnz, 16, cuda)
+    val, SMT, GT, TZ, _ = ff.factor_stream(ff.chunk_range(st, 0, mid, True),
+                                           val, n, 16, 40, 24)
+    W8 = 40
+    val = rl.widen_val(val, 16, W8)
+    SMT = rl.widen_tc(SMT, 16, W8)
+    GT = rl.relift_gt(SMT, GT, TZ, W8, 24, 48)
+    tables = (SMT, GT, TZ)
+    seg = ff.chunk_range(st, mid, es.factor.nchunks, True)
+    copies = [t.clone() for t in tables]
+    got = ff.factor_stream(seg, val, n, W8, 88, 48, tables)
+    want = ff.factor_stream_ref(seg, val, n, W8, 88, 48, tables)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert all(torch.equal(t, c) for t, c in zip(tables, copies))
+
+
 def test_singular_flag_under_pinned_pivots_raises_on_card(cuda,
                                                           monkeypatch):
     """A device half that flags sing under the oracle's pinned pivots is a
@@ -150,8 +263,8 @@ def test_singular_flag_under_pinned_pivots_raises_on_card(cuda,
     import slip_lu_tpu_torch.gpu.backslash_fused as bf
     real = bf.fused_solve_all
 
-    def faulty(*args):
-        flat = real(*args).clone()
+    def faulty(*args, **kw):
+        flat = real(*args, **kw).clone()
         flat[0], flat[1] = 1, 0
         return flat
 

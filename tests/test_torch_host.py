@@ -90,6 +90,8 @@ def test_import_leaves_jax_out():
         "import slip_lu_tpu_torch.gpu.backslash_fused\n"
         "import slip_lu_tpu_torch.gpu.factor_fused\n"
         "import slip_lu_tpu_torch.gpu._build\n"
+        "import slip_lu_tpu_torch.gpu.relift\n"
+        "import slip_lu_tpu_torch.gpu.schedule_subtree\n"
         "import slip_lu_tpu_torch.ops.device_limbs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'slip_lu_tpu' or m.startswith('slip_lu_tpu.')]\n"
