@@ -5,30 +5,42 @@
 
 Builds the kernels from slip_lu_tpu_torch/csrc with nvcc (one process per
 source, in parallel; then times one nvcc over all sources beside it) and
-drives the main path on four cases: uni10k
+drives both device paths.
+
+The fused exact solve (backend="cuda-fused") on four cases: uni10k
 (default ordering), uni100k in natural order, uni100k in its default
-ordering (a dissected, grouped stream in two width segments, GT
-re-lifted by K4 at the boundary) and tri1000 (default ordering,
-segmented). Each case makes one cold ``backslash(..., backend="cuda-fused",
-device="cuda")`` call, which plans from scratch (dissection included,
-wherever the reference pays it), held to the host oracle and to
+ordering (a dissected, grouped stream in two width segments, GT re-lifted
+by K4 at the boundary) and tri1000 (default ordering, segmented). Each
+case makes one cold ``backslash(..., backend="cuda-fused", device="cuda")``
+call, which plans from scratch (dissection included, wherever the
+reference pays it), held to the host oracle and to
 ``Options(check=True)``; then three warm solves through
 ``factorize_solve_cuda_fused`` on the Analysis that call built, the way
-the JAX package's bench.py times its solves. The kernels' launch counts
-are set to 0 before each case and read after it.
+the JAX package's bench.py times its solves.
+
+The dense exact solve (backend="cuda", every shared multiply through K5)
+on grid16 (n = 256, the reference's dense cap: one cold ``backslash`` and
+three warm ``factorize_solve_cuda`` calls on its Analysis), tri200 under
+all six pivot schemes (``factor_cuda`` held to the host ``factorize`` for
+SMALLEST and TOL_LARGEST), sparse100 with ``max_limbs=2`` (the width
+ladder climbs) and grid24 (n = 576, one cold call: the scale line), each
+held to the host oracle and to check=True. The kernels' launch counts are
+set to 0 before each case and read after it.
 
 Then the card's busy share (torch.profiler: one ``backslash`` call on
-uni10k, one solve on a reused Analysis for every case), and every kernel
-held to its plain PyTorch version on the card: K2 and K3 on uni10k's
-stream (at the width the ladder settled on, and clamped below need on the
-shortest overflowing prefix); K4 on uni100k's real segment-boundary
-tables and on a synthetic table at WIn >= 256; K2 on uni100k's second
-factor segment (its tables handed in) and K3 on its widest solve segment;
-and the whole segmented, grouped device half (``fused_solve_all``) on a
-dissected band, against the same call on CPU copies. Every comparison is
-bit equality: all values are exact integers. Exits non-zero on any
-failure, and when there is no CUDA device or no slip_lu_tpu_torch beside
-it.
+uni10k, one solve on a reused Analysis for every fused case and for
+grid16), and every kernel held to its plain PyTorch version on the card:
+K2 and K3 on uni10k's stream (at the width the ladder settled on, and
+clamped below need on the shortest overflowing prefix); K4 on uni100k's
+real segment-boundary tables and on a synthetic table at WIn >= 256; K2
+on uni100k's second factor segment (its tables handed in) and K3 on its
+widest solve segment (timed whole, compared on its first quarter); the
+whole segmented, grouped device half (``fused_solve_all``) on a dissected
+band, against the same call on CPU copies; and K5 at grid16's shapes (rho
+x M, the division, a Hensel step), on a worst-case ripple and at grid24's
+179-limb division. Every comparison is bit equality: all values are
+exact integers. Exits non-zero on any failure, and when there is no CUDA
+device or no slip_lu_tpu_torch beside it.
 
 Output: a few lines of results, the card's name and power limit, a JSON
 line with one entry per kernel, and last the line
@@ -98,16 +110,32 @@ class Case:
 def _counters():
     from slip_lu_tpu_torch.gpu import factor_fused as ff
     from slip_lu_tpu_torch.gpu import relift as rl
+    from slip_lu_tpu_torch.ops import mul_shared as ms
     return {"factor_stream": ff.factor_stream, "solve_stream": ff.solve_stream,
-            "relift_gt": rl.relift_gt}
+            "relift_gt": rl.relift_gt, "mul_shared": ms.mul_shared_limbs}
+
+
+def _keep_analysis():
+    """Patch the front end so the Analysis a backslash call builds is
+    kept (the package's name backslash is the function, hence
+    import_module). Returns (the list it lands in, the undo)."""
+    import importlib
+    bs = importlib.import_module("slip_lu_tpu_torch.backslash")
+    built = []
+    real_analyze = bs.analyze
+
+    def keep(*args, **kw):
+        built.append(real_analyze(*args, **kw))
+        return built[-1]
+
+    bs.analyze = keep
+    return built, lambda: setattr(bs, "analyze", real_analyze)
 
 
 def main_path(slip, torch, case: Case, warm: int):
     """One case: the cold backslash call (its Analysis kept), then warm
     solves on that Analysis, each checked against the host oracle. Returns
     the result lines and the kernels' launches."""
-    import importlib
-
     from slip_lu_tpu_torch.convert import matrix_copy
     from slip_lu_tpu_torch.gpu.backslash_fused import \
         factorize_solve_cuda_fused
@@ -122,17 +150,8 @@ def main_path(slip, torch, case: Case, warm: int):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    # keep the Analysis the cold call builds (backslash makes its own;
-    # the package's name backslash is the function, hence import_module)
-    bs = importlib.import_module("slip_lu_tpu_torch.backslash")
-    built = []
-    real_analyze = bs.analyze
-
-    def keep(*args, **kw):
-        built.append(real_analyze(*args, **kw))
-        return built[-1]
-
-    bs.analyze = keep
+    # keep the Analysis the cold call builds (backslash makes its own)
+    built, undo = _keep_analysis()
     # the driver prints each rung of its width ladder (widths, segments,
     # flags) during the cold call
     os.environ["SLIP_FUSED_DEBUG"] = "1"
@@ -144,7 +163,7 @@ def main_path(slip, torch, case: Case, warm: int):
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
     finally:
-        bs.analyze = real_analyze
+        undo()
         del os.environ["SLIP_FUSED_DEBUG"]
     st = slip.last_stats()
     cold_phases = dict(st.phases)
@@ -191,6 +210,192 @@ def main_path(slip, torch, case: Case, warm: int):
         f"{host_s:.3f} s",
         f"  launches {launches}"]
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# the dense exact solve (backend="cuda")
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DenseCase:
+    label: str
+    name: str
+    fields: dict             # Options fields beside check=True
+    warm: int = 0            # warm solves on the cold call's Analysis
+    factor_check: bool = False   # factor_cuda against the host factorize
+    retries: bool = False    # the width ladder must climb
+    A2: object = None        # CSC x MPZ copy and the cold call's Analysis
+    ana: object = None
+    b: object = None
+    opts: object = None
+
+
+def _same_factorization(F, G) -> bool:
+    return (F.rhos == G.rhos and list(F.pinv) == list(G.pinv)
+            and list(F.row_perm) == list(G.row_perm)
+            and [dict(c) for c in F.Lcols] == [dict(c) for c in G.Lcols]
+            and [dict(c) for c in F.Ucols] == [dict(c) for c in G.Ucols])
+
+
+def dense_path(slip, torch, case: DenseCase):
+    """One dense case: the host oracle, one cold ``backslash(...,
+    backend="cuda", device="cuda")`` (its Analysis kept), warm solves
+    through ``factorize_solve_cuda`` on that Analysis, and, where asked,
+    ``factor_cuda`` against the host ``factorize``. Every answer is held to
+    the oracle (and to check=True inside the cold call). The launch counts
+    are set to 0 before the case and read after it."""
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.factorize import factorize
+    from slip_lu_tpu_torch.gpu.backslash_cuda import (factor_cuda,
+                                                      factorize_solve_cuda)
+    from slip_lu_tpu_torch.matrix import Kind, Type
+
+    A, b = _load(slip, case.name)
+    opts = slip.Options(check=True, **case.fields)
+    t0 = time.perf_counter()
+    x_host = slip.backslash(A, b, slip.Type.MPQ, opts, backend="host")
+    host_s = time.perf_counter() - t0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    built, undo = _keep_analysis()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x = slip.backslash(A, b, slip.Type.MPQ, opts, backend="cuda",
+                           device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = slip.last_stats()
+    if st.backend != "cuda" or st.fallback:
+        _fail(f"{case.label}: not the dense path ({st.summary()})")
+    if not _same_x(x, x_host):
+        _fail(f"{case.label}: solution differs from the host oracle")
+    if case.retries and st.retries < 1:
+        _fail(f"{case.label}: the width ladder did not climb")
+    cold = dict(st.phases)
+    A2 = matrix_copy(A, Kind.CSC, Type.MPZ, opts)
+    ana = built[0]
+    times, dev_times = [], []
+    for _ in range(case.warm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xw = factorize_solve_cuda(A2, ana, b, opts, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dev_times.append(slip.last_stats().phases.get("device", 0.0))
+        if not _same_x(xw, x_host):
+            _fail(f"{case.label}: warm solve differs from the host oracle")
+    fac = ""
+    if case.factor_check:
+        t0 = time.perf_counter()
+        F = factor_cuda(A2, ana, opts, device="cuda")
+        torch.cuda.synchronize()
+        f_s = time.perf_counter() - t0
+        if not _same_factorization(F, factorize(A2, ana, opts)):
+            _fail(f"{case.label}: factor_cuda differs from the host "
+                  "factorize")
+        fac = f"; factor_cuda {f_s:.3f} s equals the host factorize"
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches["mul_shared"] == 0:
+        _fail(f"{case.label}: the dense path never launched mul_shared")
+    case.A2, case.ana, case.b, case.opts = A2, ana, b, opts
+    out = [f"dense {case.label}: n={A.n} nnz={st.nnz} W={st.W} Ws={st.Ws} "
+           f"retries={st.retries} exact=oracle, check=True; cold backslash "
+           f"{cold_s:.3f} s, phases (s): " + ", ".join(
+               f"{k} {v:.3f}" for k, v in cold.items())
+           + f"; peak device memory {peak_gb:.2f} GB; host oracle "
+           f"{host_s:.3f} s{fac}"]
+    if times:
+        out.append(f"  warm solves on the reused Analysis: median "
+                   f"{statistics.median(times):.3f} s (device "
+                   f"{statistics.median(dev_times):.3f} s) over "
+                   f"{case.warm}")
+    out.append(f"  launches {launches}")
+    return out, launches
+
+
+def dense_busy_share(slip, torch, case: DenseCase):
+    """torch.profiler over one warm dense solve: device time over the
+    host-clock wall time, K5's part of it, and the operations that take
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slip_lu_tpu_torch.gpu.backslash_cuda import factorize_solve_cuda
+    torch.cuda.synchronize()
+    # device activity only: a solve launches ~10^5 operations, and host
+    # events would double the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        factorize_solve_cuda(case.A2, case.ana, case.b, case.opts,
+                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms, per, by_name = _device_ms(prof)
+    if dev_ms == 0.0:
+        return [f"busy share dense {case.label}, Analysis reused: not "
+                "measured (the profiler saw no device time)"]
+    k5 = sum(c for name, (_, c) in by_name.items()
+             if "mul_shared_kernel" in name)
+    events = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return [f"busy share dense {case.label}, Analysis reused (profiler on):"
+            f" wall {wall:.3f} s, device {dev_ms / 1e3:.3f} s, "
+            f"{100 * dev_ms / 1e3 / wall:.1f}%, {events} device events; "
+            f"mul_shared {per['mul_shared']:.1f} ms in {k5} launches",
+            "  device time by name: " + "; ".join(
+                f"{name[:60]} {t:.1f} ms x{c}" for name, (t, c) in top)]
+
+
+def _k5_bound(B, La, Ls, D):
+    """K5's limb products (what these shapes need) and bytes (a, s read
+    once, out written once)."""
+    return _bound(B * _trunc(La, Ls, D), 4 * (B * La + Ls + B * D))
+
+
+def k5_checks(torch):
+    """K5 against its plain version on the card, bit for bit, at the
+    shapes the dense path gives it on grid16 (and grid24's division, past
+    the TPU kernel's 257-digit cap), from a seed; each timed with CUDA
+    events beside the plain version and the bound."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.ops import mul_shared as ms
+    rng = np.random.default_rng(16)
+    shapes = [("grid16 rho x M", 65536, 40, 40, 80, None),
+              ("grid16 division", 65536, 81, 81, 81, None),
+              ("grid16 Hensel step", 1, 81, 81, 81, None),
+              ("ripple", 65536, 81, 2, 81, 0xFFFF),
+              ("grid24 division", 331776, 179, 179, 179, None)]
+    lines, report = [], None
+    for label, B, La, Ls, D, fill in shapes:
+        if fill is None:
+            a = torch.from_numpy(rng.integers(0, 1 << 16, (B, La))
+                                 .astype(np.int32)).cuda()
+            s = torch.from_numpy(rng.integers(0, 1 << 16, Ls)
+                                 .astype(np.int32)).cuda()
+        else:
+            a = torch.full((B, La), fill, dtype=torch.int32, device="cuda")
+            s = torch.ones(Ls, dtype=torch.int32, device="cuda")
+        ms.mul_shared_limbs(a, s, D)                 # warm up
+        k_ms, got = _time_ms(torch, lambda: ms.mul_shared_limbs(a, s, D), 5)
+        p_ms, want = _time_ms(torch, lambda: ms.mul_shared_limbs_ref(
+            a, s, D), 1)
+        err = _diff((got,), (want,))
+        if err:
+            _fail(f"mul_shared {label}: differs from the plain version "
+                  f"(max |diff| {err})")
+        b_ms, b_by = _k5_bound(B, La, Ls, D)
+        lines.append(f"mul_shared vs plain, {label}: B={B} La={La} Ls={Ls} "
+                     f"D={D}, bit-equal; {k_ms:.4f} ms vs plain "
+                     f"{p_ms:.3f} ms; bound {b_ms:.4g} ms ({b_by})")
+        if label == "grid16 division":
+            report = (err, k_ms, p_ms, b_ms, b_by)
+    return lines, report
 
 
 def _time_ms(torch, fn, reps):
@@ -540,20 +745,29 @@ def boundary_checks(torch, case: Case):
     WNS = ff._r8(w1 + Ws8 + 2)
     k_ms, sk = _time_ms(torch, lambda: ff.solve_stream(
         sseg, val, SMT, GT, TZ, X, w1, Ws8, WNS, WIf), 1)
-    p_ms, sp = _time_ms(torch, lambda: ff.solve_stream_ref(
-        sseg, val, SMT, GT, TZ, X, w1, Ws8, WNS, WIf), 1)
-    err = _diff(sk, sp)
-    if err or sk[1].any():
-        _fail(f"{case.label}: the widest solve segment differs from the "
-              f"plain version (max |diff| {err}) or flagged "
+    if sk[1].any():
+        _fail(f"{case.label}: the widest solve segment flagged "
               f"{sk[1].tolist()}")
+    # the plain version takes ~50 ms a chunk at these widths: held to the
+    # kernel on the segment's first quarter
+    phi = slo + (shi - slo) // 4
+    pseg = ff.chunk_range(st, slo, phi, False)
+    pk_ms, pk = _time_ms(torch, lambda: ff.solve_stream(
+        pseg, val, SMT, GT, TZ, X, w1, Ws8, WNS, WIf), 1)
+    p_ms, sp = _time_ms(torch, lambda: ff.solve_stream_ref(
+        pseg, val, SMT, GT, TZ, X, w1, Ws8, WNS, WIf), 1)
+    err = _diff(pk, sp)
+    if err:
+        _fail(f"{case.label}: the widest solve segment differs from the "
+              f"plain version (max |diff| {err})")
     b_ms, b_by = _bound(*_solve_bound(sseg, val.shape[0], SMT.shape[0], w1,
                                       Ws8, WIf, X.numel()))
     lines.append(
         f"solve_stream vs plain, {case.label} solve segment "
         f"{len(ssegments) - 1} (chunks {slo}-{shi}, W8={w1}, Ws8={Ws8}, "
-        f"WI={WIf}): bit-equal; {k_ms:.3f} ms vs plain {p_ms:.3f} ms; "
-        f"bound {b_ms:.4g} ms ({b_by})")
+        f"WI={WIf}): {k_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by}); on "
+        f"chunks {slo}-{phi} bit-equal, {pk_ms:.3f} ms vs plain "
+        f"{p_ms:.3f} ms")
     return lines, report
 
 
@@ -644,20 +858,27 @@ def grouped_segment_check(slip, torch):
 
 def _device_ms(prof):
     """Device time in the profiler's trace, in ms: the sum over kernels,
-    copies and sets (one stream, so they do not overlap), and the part
-    of it in each kernel of the port."""
+    copies and sets (one stream, so they do not overlap), the part of it
+    in each kernel of the port, and the sums and counts by event name.
+    Reads the raw trace events: building the profiler's Python event list
+    takes minutes for the ~10^6 events of a dense solve."""
     from torch.autograd import DeviceType
     total = 0.0
-    per = {"factor_stream": 0.0, "solve_stream": 0.0, "relift_gt": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    per = {"factor_stream": 0.0, "solve_stream": 0.0, "relift_gt": 0.0,
+           "mul_shared": 0.0}
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        ms = e.time_range.elapsed_us() / 1e3
+        ms = e.duration_ns() / 1e6
         total += ms
+        name = e.name()
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + ms, c + 1)
         for k in per:
-            if f"{k}_kernel" in e.name:
+            if f"{k}_kernel" in name:
                 per[k] += ms
-    return total, per
+    return total, per, by_name
 
 
 def busy_share(slip, torch, cases):
@@ -688,7 +909,7 @@ def busy_share(slip, torch, cases):
                 fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            dev_ms, per = _device_ms(prof)
+            dev_ms, per, _ = _device_ms(prof)
             if dev_ms == 0.0:
                 out.append(f"busy share {case.label}, {label}: not measured "
                            "(the profiler saw no device time)")
@@ -776,6 +997,20 @@ def main() -> int:
             print(line, flush=True)
         for k, v in got.items():
             launches[k] += v
+    P = slip.Pivot
+    dense = [DenseCase("grid16", "grid16", {}, warm=3)]
+    dense += [DenseCase(f"tri200 {p.name}", "tri200", {"pivot": p},
+                        factor_check=p in (P.SMALLEST, P.TOL_LARGEST))
+              for p in P]
+    dense += [DenseCase("sparse100 max_limbs=2", "sparse100",
+                        {"max_limbs": 2}, retries=True),
+              DenseCase("grid24", "grid24", {})]
+    for case in dense:
+        lines, got = dense_path(slip, torch, case)
+        for line in lines:
+            print(line, flush=True)
+        for k, v in got.items():
+            launches[k] += v
     print(f"launches on the main path (all cases): {launches}")
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -783,10 +1018,13 @@ def main() -> int:
 
     for line in busy_share(slip, torch, cases):
         print(line, flush=True)
+    for line in dense_busy_share(slip, torch, dense[0]):
+        print(line, flush=True)
     klines, rep = stream_checks(slip, torch, cases[0])
     rlines, rep["relift_gt"] = boundary_checks(torch, cases[2])
     glines = grouped_segment_check(slip, torch)
-    for line in klines + rlines + glines:
+    mlines, rep["mul_shared"] = k5_checks(torch)
+    for line in klines + rlines + glines + mlines:
         print(line)
     kernels = []
     ref = "slip_lu_tpu/tpu/factor_fused.py"
@@ -796,7 +1034,9 @@ def main() -> int:
             ("solve_stream", "slip_lu_tpu_torch/csrc/fused.cu",
              f"{ref}:1116"),
             ("relift_gt", "slip_lu_tpu_torch/csrc/relift.cu",
-             "slip_lu_tpu/tpu/relift.py:89")):
+             "slip_lu_tpu/tpu/relift.py:89"),
+            ("mul_shared", "slip_lu_tpu_torch/csrc/mul_shared.cu",
+             "slip_lu_tpu/ops/pallas_kernels.py:103")):
         err, ms, plain_ms, bound_ms, bound_by = rep[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

@@ -31,13 +31,17 @@ def backslash(A: SlipMatrix, b: SlipMatrix, out_type: Type = Type.MPQ,
 
     backend:
       "host"       — Python-int oracle (the reference algorithm);
+      "cuda"       — the dense exact solve: right-looking IPGE over the
+                     dense limb matrix on `device`, every pivot searched
+                     on the device under options.pivot (all six schemes),
+                     with widen-and-retry on overflow;
       "cuda-fused" — the fused exact solve: the factor and solve chunk
                      streams run as two kernels on `device`, with
                      widen-and-retry on overflow and a replan around the
                      oracle's pivots on exact cancellation.
     device: "cuda" (default) runs the kernels and raises if torch finds
     no CUDA device; "cpu" runs the kernels' plain PyTorch versions.
-    Both backends produce bit-identical rationals (the exact solution is
+    All backends produce bit-identical rationals (the exact solution is
     unique; only internal pivot sequences differ).
     """
     from .stats import SolveStats, phase_timer, record
@@ -46,7 +50,10 @@ def backslash(A: SlipMatrix, b: SlipMatrix, out_type: Type = Type.MPQ,
     options.validate()
     A2 = matrix_copy(A, Kind.CSC, Type.MPZ, options)  # integerize
     analysis = analyze(A2, options)
-    if backend == "cuda-fused":
+    if backend == "cuda":
+        from .gpu.backslash_cuda import factorize_solve_cuda
+        x_mpq = factorize_solve_cuda(A2, analysis, b, options, device=device)
+    elif backend == "cuda-fused":
         from .gpu.backslash_fused import factorize_solve_cuda_fused
         x_mpq = factorize_solve_cuda_fused(A2, analysis, b, options,
                                            device=device)
@@ -60,7 +67,8 @@ def backslash(A: SlipMatrix, b: SlipMatrix, out_type: Type = Type.MPQ,
         record(st)
     else:
         raise SlipIncorrectInputError(
-            f"unknown backend={backend!r}, expected 'host' or 'cuda-fused'")
+            f"unknown backend={backend!r}, expected 'host', 'cuda' or "
+            "'cuda-fused'")
     if options.check:
         check_solution(A, x_mpq, b, options)
     return matrix_copy(x_mpq, Kind.DENSE, out_type, options)

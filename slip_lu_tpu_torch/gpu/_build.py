@@ -39,6 +39,8 @@ _SIGNATURES = {
     "slip_solve_stream": [_P] * 10 + [_I] * 11 + [_P],
     # SMT GT_old TZ GT_new | rows smt_stride W8 WIo WIn steps | stream
     "slip_relift_gt": [_P] * 4 + [_I] * 6 + [_P],
+    # a s out | B La Ls D | stream
+    "slip_mul_shared": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

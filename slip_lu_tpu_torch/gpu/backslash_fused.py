@@ -29,9 +29,10 @@ Left for later work, as the reference allows (each is an optimization or
 a TPU memory artifact, sound either way): right-hand-side lanes and
 member-lane batching (G > 1, ``fused_solve_many``), packed tables and
 HBM value tables, and ``pivot_exact`` pinning (it raises). The last
-resort after both plans flag a singular pivot is the host oracle for
-every n on the CPU (the dense device path is not ported yet); on a
-device that can only be a kernel fault, and it raises.
+resort after both plans flag a singular pivot is the reference's: on the
+CPU, the dense path (``backslash_cuda``) up to n = ``DENSE_NMAX`` and the
+host oracle above; on a device that can only be a kernel fault, and it
+raises.
 """
 
 from __future__ import annotations
@@ -167,6 +168,10 @@ def _resolve_order(A, analysis, q, fixed_r):
 # Chunk-stream event capacities of pass 1 and pass 2: the reference
 # planner's fixed (32, 128), so both packages plan the same stream.
 C1, C2 = 32, 128
+
+# The last resort's dense cap: its working set is O(n^2 * W), so larger
+# systems go to the host oracle (the reference's n <= 256).
+DENSE_NMAX = 256
 
 
 def _device(device) -> torch.device:
@@ -639,18 +644,23 @@ def factorize_solve_cuda_fused(A: SlipMatrix, analysis: Analysis,
     # Both plans singular-flagged. Plan 0's replan raises for a singular
     # matrix and plan 1 pins the oracle's nonzero pivots, so only a fault
     # in the device half gets here: on a device it is raised, never
-    # hidden behind a host answer. The plain versions on the CPU keep the
-    # reference's last resort, the host oracle (exact at any n; the dense
-    # device path is not ported). Recorded after the host solve, so
-    # last_stats() reports the fallback.
+    # hidden behind another answer. The plain versions on the CPU take the
+    # reference's last resort: the dense path, which searches pivots
+    # dynamically, up to DENSE_NMAX, and the host oracle (exact, O(fill)
+    # memory) above. Recorded after that solve, so last_stats() reports
+    # the fallback.
     if dev.type != "cpu":
         raise SlipPanicError(
             f"the {dev.type} stream kernels flagged a singular pivot under "
             "the oracle's pinned nonzero pivots — internal invariant "
             "violated")
     st.fallback = True
-    from ..backslash import backslash
-    x = backslash(A, b, Type.MPQ, options, backend="host")
+    if n > DENSE_NMAX:
+        from ..backslash import backslash
+        x = backslash(A, b, Type.MPQ, options, backend="host")
+    else:
+        from .backslash_cuda import factorize_solve_cuda
+        x = factorize_solve_cuda(A, analysis, b, options, device=dev)
     record(st)
     return x
 

@@ -180,10 +180,12 @@ def _always_singular(n, W8, Ws8, WN, WNS, WI8, st, val_in, b_rows, **kw):
 
 
 def test_last_resort_is_host_oracle_on_cpu(monkeypatch):
-    """Both plans flag sing: on the plain versions the host oracle
-    answers, and last_stats() says so."""
+    """Both plans flag sing: on the plain versions the host oracle answers
+    above the dense path's cap (lowered below tri20's n = 20 here), and
+    last_stats() says so."""
     import slip_lu_tpu_torch.gpu.backslash_fused as bf
     monkeypatch.setattr(bf, "fused_solve_all", _always_singular)
+    monkeypatch.setattr(bf, "DENSE_NMAX", 10)
     A, b = _read(port, "tri20")
     x = port.backslash(A, b, port.Type.MPQ, port.Options(check=True),
                        device="cpu")

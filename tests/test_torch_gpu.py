@@ -272,3 +272,86 @@ def test_singular_flag_under_pinned_pivots_raises_on_card(cuda,
     A, b = _read("tri20")
     with pytest.raises(port.SlipPanicError, match="invariant"):
         port.backslash(A, b, port.Type.MPQ, port.Options(), device="cuda")
+
+
+def _limb_ints(rows):
+    return [sum(int(v) << (16 * i) for i, v in enumerate(r)) for r in rows]
+
+
+@pytest.mark.parametrize("B,La,Ls,D,fill", [
+    (65536, 40, 40, 80, None),     # grid16's rho x M: every limb kept
+    (65536, 81, 81, 81, None),     # grid16's division, mod 2^(16*81)
+    (1, 81, 81, 81, None),         # a Hensel doubling step
+    (4096, 81, 2, 81, 0xFFFF),     # ripple: all-ones rows times 2^16 + 1
+    (300, 179, 179, 179, None),    # grid24's division: 358 digits
+    (7, 600, 300, 900, None),      # past 8 warps' shared memory budget
+])
+def test_mul_shared_kernel_matches_plain_version(cuda, B, La, Ls, D, fill):
+    from slip_lu_tpu_torch.ops import mul_shared as ms
+    rng = np.random.default_rng(B + La + Ls + D)
+    if fill is None:
+        a = rng.integers(0, 1 << 16, (B, La)).astype(np.int32)
+        s = rng.integers(0, 1 << 16, Ls).astype(np.int32)
+    else:
+        a = np.full((B, La), fill, np.int32)
+        s = np.ones(Ls, np.int32)
+    a_d, s_d = torch.from_numpy(a).to(cuda), torch.from_numpy(s).to(cuda)
+    before = ms.mul_shared_limbs.launches
+    got = ms.mul_shared_limbs(a_d, s_d, D)
+    torch.cuda.synchronize()
+    want = ms.mul_shared_limbs_ref(a_d, s_d, D)
+    assert got.shape == (B, D) and torch.equal(got, want)
+    assert ms.mul_shared_limbs.launches == before + 1
+    sv, mod = _limb_ints([s])[0], 1 << (16 * D)
+    rows = list(range(min(B, 3))) + [B - 1]
+    assert _limb_ints(got[rows].cpu().numpy()) == [
+        (v * sv) % mod for v in _limb_ints(a[rows])]
+
+
+def test_dense_program_matches_plain_versions(cuda):
+    """factor_solve_dense on the card (K5 and the plain tensor code around
+    it) against the same call on CPU copies, for every pivot scheme: the
+    flat buffers are bit-equal."""
+    from slip_lu_tpu_torch.gpu.backslash_cuda import (_pack_factor_inputs,
+                                                      _tol_dyadic)
+    from slip_lu_tpu_torch.gpu.bounds import factor_width, solve_width
+    from slip_lu_tpu_torch.gpu.fused import factor_solve_dense
+    from slip_lu_tpu_torch.ops import mul_shared as ms
+    from slip_lu_tpu_torch.ops.limbs import matrix_to_limbs
+    A, b = _read("tri20")
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    q = np.asarray(port.analyze(A, port.Options()).q, np.int64)
+    W = factor_width(A)
+    Ws = solve_width(A, bz.x, W, A.n)
+    mag, shift = _tol_dyadic(0.1)
+    for scheme in port.Pivot:
+        bufs = []
+        for dev in (cuda, torch.device("cpu")):
+            S, M = _pack_factor_inputs(A, q, W, dev)
+            VS, VM = (torch.from_numpy(t).to(dev)
+                      for t in matrix_to_limbs(bz.x, Ws))
+            before = ms.mul_shared_limbs.launches
+            bufs.append(factor_solve_dense(
+                S, M, torch.from_numpy(q.astype(np.int32)).to(dev), VS, VM,
+                int(scheme), torch.from_numpy(mag).to(dev), shift).cpu())
+            launched = ms.mul_shared_limbs.launches - before
+            assert (launched > 0) == (dev.type == "cuda")
+        assert torch.equal(bufs[0], bufs[1]), scheme
+        assert not bufs[0][:3].any()
+
+
+@pytest.mark.parametrize("name", ["grid16", "tri20", "multirhs15"])
+def test_dense_backslash_on_card_matches_oracle(cuda, name):
+    from slip_lu_tpu_torch.ops import mul_shared as ms
+    A, b = _read(name)
+    before = ms.mul_shared_limbs.launches
+    x = port.backslash(A, b, port.Type.MPQ, port.Options(check=True),
+                       backend="cuda", device="cuda")
+    st = port.last_stats()
+    assert st.backend == "cuda" and ms.mul_shared_limbs.launches > before
+    x_host = port.backslash(A, b, port.Type.MPQ, port.Options(),
+                            backend="host")
+    for i in range(x.m):
+        for c in range(x.n):
+            assert x.x[i, c] == x_host.x[i, c], (i, c)

@@ -93,6 +93,9 @@ def test_import_leaves_jax_out():
         "import slip_lu_tpu_torch.gpu.relift\n"
         "import slip_lu_tpu_torch.gpu.schedule_subtree\n"
         "import slip_lu_tpu_torch.ops.device_limbs\n"
+        "import slip_lu_tpu_torch.gpu.backslash_cuda\n"
+        "import slip_lu_tpu_torch.ops.matarith\n"
+        "import slip_lu_tpu_torch.ops.mul_shared\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'slip_lu_tpu' or m.startswith('slip_lu_tpu.')]\n"
         "assert not bad, bad\n")
