@@ -4,8 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from slip_lu_tpu_torch/csrc with nvcc (one process per
-source, in parallel; then times one nvcc over all sources beside it) and
-drives both device paths.
+source, in parallel) and drives the three device paths.
 
 The fused exact solve (backend="cuda-fused") on four cases: uni10k
 (default ordering), uni100k in natural order, uni100k in its default
@@ -14,33 +13,51 @@ by K4 at the boundary) and tri1000 (default ordering, segmented). Each
 case makes one cold ``backslash(..., backend="cuda-fused", device="cuda")``
 call, which plans from scratch (dissection included, wherever the
 reference pays it), held to the host oracle and to
-``Options(check=True)``; then three warm solves through
-``factorize_solve_cuda_fused`` on the Analysis that call built, the way
-the JAX package's bench.py times its solves.
+``Options(check=True)``; then warm solves (three on uni10k and tri1000,
+one on each uni100k) through ``factorize_solve_cuda_fused`` on the
+Analysis that call built, the way the JAX package's bench.py times its
+solves.
 
 The dense exact solve (backend="cuda", every shared multiply through K5)
 on grid16 (n = 256, the reference's dense cap: one cold ``backslash`` and
-three warm ``factorize_solve_cuda`` calls on its Analysis), tri200 under
+one warm ``factorize_solve_cuda`` call on its Analysis), tri200 under
 all six pivot schemes (``factor_cuda`` held to the host ``factorize`` for
 SMALLEST and TOL_LARGEST), sparse100 with ``max_limbs=2`` (the width
 ladder climbs) and grid24 (n = 576, one cold call: the scale line), each
 held to the host oracle and to check=True. The kernels' launch counts are
 set to 0 before each case and read after it.
 
+The sharded fused exact solve (``factorize_solve_cuda_fused_sharded``)
+at world size 1, one rank in a one-rank NCCL group: uni10k (one cold call
+on a new Analysis, then three warm solves), uni100k in its default
+ordering (one planning call and one warm solve on the Analysis the
+single-chip case built, so the dissection's certification is not paid
+again), tri1000 (a new Analysis: its transversal pivots cancel, so the
+first call climbs the width ladder through segments, K4 at the
+boundaries, to the bound and takes the single-chip fallback; the warm
+call then runs on the pinned rows) and the 4x4 system whose natural-order
+pivots cancel (it must take the single-chip fallback and report it); each
+held to the host oracle and to check_solution, K6 and K7 counted,
+all-reduces counted per solve.
+
 Then the card's busy share (torch.profiler: one ``backslash`` call on
-uni10k, one solve on a reused Analysis for every fused case and for
-grid16), and every kernel held to its plain PyTorch version on the card:
-K2 and K3 on uni10k's stream (at the width the ladder settled on, and
+uni10k, one solve on a reused Analysis for every fused case, for grid16
+and for the sharded uni10k), and every kernel held to its plain PyTorch
+version on the card: K2 and K3 on uni10k's stream (at the width the
+ladder settled on, timed whole and compared on its first 300 chunks, and
 clamped below need on the shortest overflowing prefix); K4 on uni100k's
 real segment-boundary tables and on a synthetic table at WIn >= 256; K2
 on uni100k's second factor segment (its tables handed in) and K3 on its
-widest solve segment (timed whole, compared on its first quarter); the
+widest solve segment (timed whole, compared on its first tenth); the
 whole segmented, grouped device half (``fused_solve_all``) on a dissected
 band, against the same call on CPU copies; and K5 at grid16's shapes (rho
 x M, the division, a Hensel step), on a worst-case ripple and at grid24's
-179-limb division. Every comparison is bit equality: all values are
-exact integers. Exits non-zero on any failure, and when there is no CUDA
-device or no slip_lu_tpu_torch beside it.
+179-limb division; K6 and K7 on prefixes of the factor and the solve
+stream of uni10k's sharded plan at p = 1 (timed) and on ranks 0 and 1 of
+a p = 2 plan, run one after the other with the sums taken by hand. Every
+comparison is bit equality: all values are exact integers. Exits non-zero
+on any failure, and when there is no CUDA device or no slip_lu_tpu_torch
+beside it.
 
 Output: a few lines of results, the card's name and power limit, a JSON
 line with one entry per kernel, and last the line
@@ -101,6 +118,7 @@ class Case:
     order: object            # an Ordering, or None for the default
     grouped: bool = False    # the grouped stream must be adopted
     segmented: bool = False  # >= 2 factor segments, K4 launched
+    warm: int = 3            # warm solves on the cold call's Analysis
     A2: object = None        # CSC x MPZ copy and the cold call's Analysis
     ana: object = None
     b: object = None
@@ -111,8 +129,10 @@ def _counters():
     from slip_lu_tpu_torch.gpu import factor_fused as ff
     from slip_lu_tpu_torch.gpu import relift as rl
     from slip_lu_tpu_torch.ops import mul_shared as ms
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
     return {"factor_stream": ff.factor_stream, "solve_stream": ff.solve_stream,
-            "relift_gt": rl.relift_gt, "mul_shared": ms.mul_shared_limbs}
+            "relift_gt": rl.relift_gt, "mul_shared": ms.mul_shared_limbs,
+            "ab_chunk": ffs.ab_chunk, "c_chunk": ffs.c_chunk}
 
 
 def _keep_analysis():
@@ -527,11 +547,18 @@ def _solve_bound(st, E8, n8, W8, Ws8, WI, nx):
 # the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# chunks of uni10k's streams on which the settled-width kernels are held
+# to their plain versions (the plain versions take 25-40 ms a chunk)
+SETTLED_PREFIX = 300
+
+
 def stream_checks(slip, torch, case: Case):
-    """K2 and K3 against their plain versions on uni10k's stream: the
-    whole stream at the width the ladder settled on, then a width clamped
-    below need on the shortest prefix of the stream that overflows (the
-    garbage after the first overflow is compared all the same)."""
+    """K2 and K3 against their plain versions on uni10k's stream: at the
+    width the ladder settled on, the kernels timed on the whole stream and
+    held to the plain versions on its first SETTLED_PREFIX chunks; then a
+    width clamped below need on the shortest prefix of the stream that
+    overflows (the garbage after the first overflow is compared all the
+    same)."""
     from slip_lu_tpu_torch.convert import matrix_copy
     from slip_lu_tpu_torch.gpu import factor_fused as ff
     from slip_lu_tpu_torch.gpu.backslash_fused import _tc_width
@@ -559,8 +586,13 @@ def stream_checks(slip, torch, case: Case):
         X0 = ff.x_tensor(torch.from_numpy(
             ff.ints_to_tc_rows(bcol, Wb)).to(dev), n, Ws8, es.nxx)
         tables = ff.factor_stream(st, val, nd, W8, WN, WI8)[:4]
-        kf, ks = nf, ns
-        if label == "clamped":
+        kf, ks = min(nf, SETTLED_PREFIX), min(ns, SETTLED_PREFIX)
+        if label == "settled":
+            whole_f, _ = _time_ms(torch, lambda: ff.factor_stream(
+                st, val, nd, W8, WN, WI8), 3)
+            whole_s, _ = _time_ms(torch, lambda: ff.solve_stream(
+                st, *tables, X0, W8, Ws8, WNS, WI8), 3)
+        else:
             kf = _shortest_overflowing(lambda k: bool(ff.factor_stream(
                 _prefix(st, k, ns), val, nd, W8, WN, WI8)[4][1]), nf)
             ks = _shortest_overflowing(lambda k: bool(ff.solve_stream(
@@ -589,6 +621,11 @@ def stream_checks(slip, torch, case: Case):
         if label == "clamped" and not (fflags[1] and sflags[1]):
             _fail(f"clamped width raised no overflow flag: {fflags} "
                   f"{sflags}")
+        if label == "settled":
+            lines.append(
+                f"kernels on {case.label}'s whole streams ({nf} factor, {ns} "
+                f"solve chunks), W8={W8} Ws8={Ws8}: factor_stream "
+                f"{whole_f:.3f} ms, solve_stream {whole_s:.3f} ms")
         lines.append(
             f"kernels vs plain, {case.label} {label} W8={W8} Ws8={Ws8} on "
             f"{kf}/{nf} factor and {ks}/{ns} solve chunks: factor flags "
@@ -597,15 +634,16 @@ def stream_checks(slip, torch, case: Case):
             f"solve_stream {ks_ms:.3f} ms vs plain {ps_ms:.3f} ms")
         if label == "settled":
             E8, n8 = val.shape[0], tables[0].shape[0]
-            fops, fbytes = _factor_bound(st, E8, n8, W8, WI8, False)
-            sops, sbytes = _solve_bound(st, E8, n8, W8, Ws8, WI8,
+            fops, fbytes = _factor_bound(fst, E8, n8, W8, WI8, False)
+            sops, sbytes = _solve_bound(sst, E8, n8, W8, Ws8, WI8,
                                         X0.numel())
             report = {"factor_stream": (f_err, k_ms, p_ms,
                                         *_bound(fops, fbytes)),
                       "solve_stream": (s_err, ks_ms, ps_ms,
                                        *_bound(sops, sbytes))}
             lines.append(
-                f"  bounds at W8={W8} Ws8={Ws8}: factor {fops:.4g} limb "
+                f"  bounds on those chunks at W8={W8} Ws8={Ws8}: factor "
+                f"{fops:.4g} limb "
                 f"products, {fbytes:.4g} bytes -> "
                 f"{report['factor_stream'][3]:.4f} ms "
                 f"({report['factor_stream'][4]}); solve {sops:.4g} "
@@ -749,8 +787,8 @@ def boundary_checks(torch, case: Case):
         _fail(f"{case.label}: the widest solve segment flagged "
               f"{sk[1].tolist()}")
     # the plain version takes ~50 ms a chunk at these widths: held to the
-    # kernel on the segment's first quarter
-    phi = slo + (shi - slo) // 4
+    # kernel on the segment's first tenth
+    phi = slo + (shi - slo) // 10
     pseg = ff.chunk_range(st, slo, phi, False)
     pk_ms, pk = _time_ms(torch, lambda: ff.solve_stream(
         pseg, val, SMT, GT, TZ, X, w1, Ws8, WNS, WIf), 1)
@@ -922,26 +960,346 @@ def busy_share(slip, torch, cases):
     return out
 
 
-def _serial_build_seconds(lib) -> float:
-    """Seconds of one nvcc call over every source (the build before the
-    library compiled one process per source), to compare with the
-    parallel build; its output is deleted."""
-    import glob
-    import tempfile
+# ---------------------------------------------------------------------------
+# the sharded fused exact solve (one rank in a one-rank NCCL group)
+# ---------------------------------------------------------------------------
 
-    from slip_lu_tpu_torch.gpu import _build
-    srcs = sorted(glob.glob(os.path.join(HERE, "slip_lu_tpu_torch", "csrc",
-                                         "*.cu")))
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(lib.path)) as d:
+@dataclasses.dataclass
+class ShardCase:
+    label: str
+    name: str                # a corpus matrix, or "cancel4"
+    order: object = None     # an Ordering, or None for the default
+    warm: int = 0            # warm solves on the first call's Analysis
+    base: object = None      # a fused Case whose Analysis the first call
+    #                          reuses (else a new Analysis: a cold call)
+    fallback: tuple = ()     # the calls (0 = first) that must take the
+    #                          single-chip fallback; no other call may
+    segmented: bool = False  # >= 2 factor segments in the last call, K4
+    A2: object = None        # CSC x MPZ copy and the Analysis it ran on
+    ana: object = None
+    b: object = None
+    opts: object = None
+
+
+def _cancel4(slip):
+    """In natural order this system's 2x2 leading minor cancels exactly
+    (the JAX package's tests/test_sharded_fused.py)."""
+    import numpy as np
+    A = slip.SlipMatrix.from_dense(np.array(
+        [[2, 1, 0, 3], [4, 2, 1, 0], [0, 1, 5, 1], [3, 0, 1, 4]],
+        dtype=object), slip.Type.MPZ)
+    b = slip.SlipMatrix.from_dense(np.array([[1], [2], [3], [4]],
+                                            dtype=object), slip.Type.MPZ)
+    return A, b
+
+
+def _shard_spy():
+    """Record the widths and segments of every call of the sharded device
+    half. Returns (the list, the undo)."""
+    from slip_lu_tpu_torch.parallel import driver_fused as df
+    real = df.fused_sharded_solve
+    seen = []
+
+    def spy(group, n, W8, Ws8, WI8, rs, val0, X0, ndet=None, segments=None,
+            ssegments=None):
+        seen.append((W8, Ws8, segments, ssegments))
+        return real(group, n, W8, Ws8, WI8, rs, val0, X0, ndet, segments,
+                    ssegments)
+
+    df.fused_sharded_solve = spy
+    return seen, lambda: setattr(df, "fused_sharded_solve", real)
+
+
+def sharded_path(slip, torch, case: ShardCase):
+    """One sharded case at world size 1: the first call (cold on a new
+    Analysis, or planning on a reused one), then warm solves on the same
+    Analysis; each held to the host oracle and to check_solution, K6 and
+    K7 counted. Returns the result lines and the launches."""
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    from slip_lu_tpu_torch.parallel import factorize_solve_cuda_fused_sharded
+    from slip_lu_tpu_torch.parallel.shard import psum
+
+    A, b = _cancel4(slip) if case.name == "cancel4" else \
+        _load(slip, case.name)
+    opts = slip.Options(check=True) if case.order is None else \
+        slip.Options(check=True, order=case.order)
+    x_host = slip.backslash(A, b, slip.Type.MPQ, opts, backend="host")
+    if case.base is not None:
+        A2, ana = case.base.A2, case.base.ana
+    else:
+        A2 = matrix_copy(A, Kind.CSC, Type.MPZ, opts)
+        ana = slip.analyze(A2, opts)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    seen, undo = _shard_spy()
+    times, dev_times, per_solve = [], [], []
+    try:
+        for i in range(1 + case.warm):
+            before = (psum.calls, counters["ab_chunk"].launches,
+                      counters["c_chunk"].launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = factorize_solve_cuda_fused_sharded(A2, ana, b, None, opts,
+                                                   device="cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            st = slip.last_stats()
+            if i == 0:
+                first = dict(st.phases)
+            dev_times.append(st.phases.get("device", 0.0))
+            per_solve.append((psum.calls - before[0],
+                              counters["ab_chunk"].launches - before[1],
+                              counters["c_chunk"].launches - before[2]))
+            if st.backend != "cuda-fused-sharded" or \
+                    st.fallback != (i in case.fallback):
+                _fail(f"sharded {case.label}: {st.summary()}")
+            slip.check_solution(A, x, b, opts)
+            if not _same_x(x, x_host):
+                _fail(f"sharded {case.label}: solution differs from the "
+                      "host oracle")
+    finally:
+        undo()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k in ("ab_chunk", "c_chunk"):
+        if launches[k] == 0:
+            _fail(f"sharded {case.label}: the main path never launched {k}")
+    W8, Ws8, segments, ssegments = seen[-1]
+    if case.segmented and (len(segments) < 2 or launches["relift_gt"] == 0):
+        _fail(f"sharded {case.label}: factor plan {segments}, relift_gt "
+              f"launched {launches['relift_gt']} times")
+    ses = ana.fused_shard_cache[1][2]
+    case.A2, case.ana, case.b, case.opts = A2, ana, b, opts
+    kind = "planning call on the reused Analysis" if case.base is not None \
+        else "cold call"
+    out = [
+        f"sharded {case.label} (world size 1): n={A.n} W8={st.W} Ws8="
+        f"{st.Ws} retries={st.retries} fallback in calls "
+        f"{list(case.fallback)} grouped="
+        f"{ses.ndet is not None} factor chunks {ses.factor.nchunks} solve "
+        f"chunks {ses.solve.nchunks} segments {list(segments)} ssegments "
+        f"{list(ssegments)} exact=oracle, check_solution",
+        f"  {kind} {times[0]:.3f} s, phases (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in first.items())]
+    if case.warm:
+        out.append(
+            f"  warm solves on the same Analysis: median "
+            f"{statistics.median(times[1:]):.3f} s (device "
+            f"{statistics.median(dev_times[1:]):.3f} s) over {case.warm}")
+    out.append(f"  per call (all-reduces, ab_chunk, c_chunk launches): "
+               f"{per_solve}; sharded device-half calls (W8, Ws8, segments)"
+               f": {[sn[:3] for sn in seen]}; launches {launches}")
+    return out, launches
+
+
+def _shard_states(torch, ses, avals, r, b, rank, W8, Ws8, WI):
+    """One rank's tables of a plan on the card, as the driver packs them
+    (first right-hand side only)."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.gpu import factor_fused as ff
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    n = ses.n
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    v = np.zeros((ff._r8(ses.Lp), W8), np.int32)
+    mine = ses.init_chip == rank
+    v[ses.init_loc[mine]] = ff.ints_to_tc_rows(avals, W8)[mine]
+    if ses.extra_chip is not None and len(ses.extra_chip):
+        em = ses.extra_chip == rank
+        v[ses.extra_loc[em]] = ff.ints_to_tc_rows(ses.extra_vals, W8)[em]
+    n8 = ff._r8((n if ses.ndet is None else ses.ndet) + 2)
+    tabs = [np.zeros((n8, w), np.int32) for w in (W8, WI, 8)]
+    tabs[0][0, 0] = tabs[1][0, 0] = 1
+    X = np.zeros((ff._r8(n + 1 + ses.nxx), Ws8), np.int32)
+    X[:n] = ff.ints_to_tc_rows([int(bz.x[int(r[k]), 0]) for k in range(n)],
+                               Ws8)
+    return {k: torch.from_numpy(t).to("cuda") for k, t in zip(
+        ("val", "SMT", "GT", "TZ", "X", "flags", "sflags"),
+        (v, *tabs, X, np.zeros(8, np.int32), np.zeros(8, np.int32)))}
+
+
+def _chunk_bound(chs, cs, W8, Wt, WI8, kernel):
+    """Limb products and bytes of K6 ("ab") or K7 ("c") over the chunks cs
+    of every rank's stream in chs: the events' products as for K2, the
+    heads' fixes and lifts (K6, factor), and each chunk's stream rows and
+    distinct table rows read once and written once."""
+    import numpy as np
+    WQ = min(WI8, ((Wt + 2 + 7) // 8) * 8)
+    WV = ((WQ + W8 + 7) // 8) * 8
+    ops = nbytes = 0.0
+    for ch in chs:
+        H = ch.H
+        meta = ch.meta_host[cs]
+        ev = (ch.ev1 if kernel == "ab" else ch.ev2)[cs].cpu().numpy()
+        cnt = meta[:, 3 * H + (1 if kernel == "ab" else 2)]
+        ops += _pass_ops(ev, cnt, Wt, W8, WQ, WV, kernel == "c")
+        nbytes += 4 * (meta.size + ev.size + 2 * ch.CB8 * len(cs))
+        for j, c in enumerate(cs):
+            live = ev[j, :, :cnt[j]]
+            t, m, d, a, bb = (np.unique(live[f]) for f in range(5))
+            md = np.unique(np.concatenate([m, d]))
+            nbytes += 4 * (2 * len(t) * Wt + len(md) * W8
+                           + len(d) * (WI8 + 8))
+            nb = int(meta[j, 3 * H + 4])
+            if kernel == "c":
+                nbytes += 4 * (len(a) * W8 + len(bb) * Wt + nb * Wt)
+            else:
+                nbytes += 4 * nb * Wt * 2            # gather in, bc out
+            if kernel == "ab" and H and meta[j, 3 * H] > 0:
+                nh = int(meta[j, 3 * H])
+                ks, dv = meta[j, :nh], meta[j, 2 * H:2 * H + nh]
+                fix = (dv != ks) & bool(meta[j, 3 * H + 3] & 256)
+                ops += float(fix.sum()) * (W8 * W8 + _trunc(WQ, WQ, WQ)
+                                           + _trunc(WQ, W8, WV))
+                lift, w = 0, 1
+                while w < WI8:
+                    w2 = min(2 * w, WI8)
+                    lift += _trunc(w2, w, w2) + _trunc(w, w2, w2)
+                    w = w2
+                ops += nh * lift
+                nbytes += 4 * nh * (W8 + 3 * W8 + WI8 + 8)
+    return ops, nbytes
+
+
+def _timed_steps(torch, ffs, chs, cs, states, solve, plain):
+    """Run the chunks cs on every rank in this process (local_ab, the sum,
+    local_c). Returns the summed ms of the K6 and of the K7 calls: for the
+    plain versions, CUDA events around each call; for the kernels, their
+    device time in torch.profiler's trace (events around a call of a few
+    microseconds would time the host's launch instead), or the events'
+    time where the trace has none."""
+    from torch.profiler import ProfilerActivity, profile
+    ev = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in cs:
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            e[0].record()
+            bcs = ffs.local_ab(chs, c, states, solve, plain)
+            e[1].record()
+            bc = sum(bcs)
+            e[2].record()
+            ffs.local_c(chs, c, states, bc, solve, plain)
+            e[3].record()
+            ev.append(e)
+        torch.cuda.synchronize()
+    timed = (sum(e[0].elapsed_time(e[1]) for e in ev),
+             sum(e[2].elapsed_time(e[3]) for e in ev))
+    if plain:
+        return timed
+    _, _, by_name = _device_ms(prof)
+    dev = [sum(t for name, (t, _) in by_name.items() if k in name)
+           for k in ("ab_chunk_kernel", "c_chunk_kernel")]
+    return tuple(d if d > 0 else t for d, t in zip(dev, timed))
+
+
+def shard_kernel_checks(slip, torch, case: ShardCase):
+    """K6 and K7 against their plain versions on the card, bit for bit, on
+    a prefix of the factor stream and, after the whole factor stream (the
+    kernels), a prefix of the solve stream of uni10k's sharded plan: at
+    p = 1 (timed: the kernels' device time, the plain versions' CUDA
+    events, beside the bound), and on ranks 0 and 1 of a p = 2 plan, run
+    one after the other in this process with the sums taken by hand (what
+    the all-reduce computes)."""
+    from slip_lu_tpu_torch.parallel import driver_fused as df
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
+    ana, A2 = case.ana, case.A2
+    W, Ws = ana.fused_width_cache
+    W8 = ((W + 7) // 8) * 8
+    Ws8 = ((max(Ws, W + 1) + 7) // 8) * 8
+    WI = max(((W8 + 2 + 7) // 8) * 8, ((max(W8, Ws8) + 2 + 7) // 8) * 8)
+    lines, report = [], {}
+    for p, nf, ns in ((1, 100, 50), (2, 50, 25)):
+        _, r, ses, avals, _ = df.plan_sharded(A2, ana, p, case.opts)
+        arrays = df.stream_arrays(ses, A2.n)
+        rss = [ffs.rank_streams(k, "cuda", *arrays) for k in range(p)]
+        fch = [rs.factor for rs in rss]
+        sch = [rs.solve for rs in rss]
+        kst = [_shard_states(torch, ses, avals, r, case.b, k, W8, Ws8, WI)
+               for k in range(p)]
+        pst = [{k: t.clone() for k, t in st.items()} for st in kst]
+        fcs = list(range(min(nf, fch[0].nchunks)))
+        _timed_steps(torch, ffs, fch, fcs[:2], [
+            {k: t.clone() for k, t in st.items()} for st in kst], False,
+            False)                                     # warm up
+        k6, k7 = _timed_steps(torch, ffs, fch, fcs, kst, False, False)
+        p6, p7 = _timed_steps(torch, ffs, fch, fcs, pst, False, True)
+        err = max(_diff(tuple(a.values()), tuple(b.values()))
+                  for a, b in zip(kst, pst))
+        if err:
+            _fail(f"sharded kernels p={p}: factor prefix differs from the "
+                  f"plain versions (max |diff| {err})")
+        # the rest of the factor stream with the kernels, then the solve
+        rest = range(len(fcs), fch[0].nchunks)
+        _timed_steps(torch, ffs, fch, rest, kst, False, False)
+        if any(st["flags"].any() for st in kst):
+            _fail(f"sharded kernels p={p}: the settled widths flagged "
+                  f"{[st['flags'].tolist() for st in kst]}")
+        pst = [{k: t.clone() for k, t in st.items()} for st in kst]
+        scs = list(range(min(ns, sch[0].nchunks)))
+        s6, s7 = _timed_steps(torch, ffs, sch, scs, kst, True, False)
+        q6, q7 = _timed_steps(torch, ffs, sch, scs, pst, True, True)
+        serr = max(_diff(tuple(a.values()), tuple(b.values()))
+                   for a, b in zip(kst, pst))
+        if serr:
+            _fail(f"sharded kernels p={p}: solve prefix differs from the "
+                  f"plain versions (max |diff| {serr})")
+        nfl, nsl = len(fcs) * p, len(scs) * p
+        lines.append(
+            f"sharded kernels vs plain, uni10k p={p} (ranks run in turn, "
+            f"sums by hand), W8={W8} Ws8={Ws8} WI={WI}: {len(fcs)}/"
+            f"{fch[0].nchunks} factor and {len(scs)}/{sch[0].nchunks} solve "
+            f"chunks bit-equal; device time: factor ab_chunk {k6:.3f} ms / "
+            f"c_chunk {k7:.3f} ms over {nfl} launches each (plain {p6:.3f} / "
+            f"{p7:.3f} ms); solve ab_chunk {s6:.3f} / c_chunk {s7:.3f} ms "
+            f"over {nsl} (plain {q6:.3f} / {q7:.3f} ms)")
+        if p == 1:
+            fo6, fb6 = _chunk_bound(fch, fcs, W8, W8, WI, "ab")
+            fo7, fb7 = _chunk_bound(fch, fcs, W8, W8, WI, "c")
+            so6, sb6 = _chunk_bound(sch, scs, W8, Ws8, WI, "ab")
+            so7, sb7 = _chunk_bound(sch, scs, W8, Ws8, WI, "c")
+            n6, n7 = nfl + nsl, nfl + nsl
+            b6, by6 = _bound((fo6 + so6) / n6, (fb6 + sb6) / n6)
+            b7, by7 = _bound((fo7 + so7) / n7, (fb7 + sb7) / n7)
+            report = {
+                "ab_chunk": (max(err, serr), (k6 + s6) / n6,
+                             (p6 + q6) / n6, b6, by6),
+                "c_chunk": (max(err, serr), (k7 + s7) / n7, (p7 + q7) / n7,
+                            b7, by7)}
+            lines.append(
+                f"  per launch (mean over the {n6} factor and solve "
+                f"launches): ab_chunk {report['ab_chunk'][1]:.4f} ms vs "
+                f"plain {report['ab_chunk'][2]:.3f} ms, bound {b6:.3g} ms "
+                f"({by6}); c_chunk {report['c_chunk'][1]:.4f} ms vs plain "
+                f"{report['c_chunk'][2]:.3f} ms, bound {b7:.3g} ms ({by7})")
+    return lines, report
+
+
+def shard_busy_share(torch, case: ShardCase):
+    """torch.profiler over one warm sharded uni10k solve: device time
+    over the host-clock wall time, and K6's and K7's part of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slip_lu_tpu_torch.parallel import factorize_solve_cuda_fused_sharded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + ["-shared", "-o", os.path.join(d, "serial.so")] + srcs,
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        _fail(f"one-call nvcc build failed:\n{res.stderr}")
-    return seconds
+        factorize_solve_cuda_fused_sharded(case.A2, case.ana, case.b, None,
+                                           case.opts, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms, _, by_name = _device_ms(prof)
+    if dev_ms == 0.0:
+        return [f"busy share sharded {case.label}: not measured (the "
+                "profiler saw no device time)"]
+    part = {k: sum(t for name, (t, _) in by_name.items() if k in name)
+            for k in ("ab_chunk_kernel", "c_chunk_kernel", "nccl")}
+    return [f"busy share sharded {case.label}, Analysis reused (profiler "
+            f"on): wall {wall:.3f} s, device {dev_ms / 1e3:.3f} s, "
+            f"{100 * dev_ms / 1e3 / wall:.1f}%; " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in part.items())]
 
 
 def main() -> int:
@@ -981,24 +1339,21 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    if lib.build_seconds > 0:
-        print(f"  the same sources in one nvcc call: "
-              f"{_serial_build_seconds(lib):.2f} s")
 
     cases = [Case("uni10k", "uni10k", None),
-             Case("uni100k-natural", "uni100k", slip.Ordering.NONE),
+             Case("uni100k-natural", "uni100k", slip.Ordering.NONE, warm=1),
              Case("uni100k-default", "uni100k", None, grouped=True,
-                  segmented=True),
+                  segmented=True, warm=1),
              Case("tri1000", "tri1000", None, segmented=True)]
     launches = {k: 0 for k in _counters()}
     for case in cases:
-        lines, got = main_path(slip, torch, case, warm=3)
+        lines, got = main_path(slip, torch, case, warm=case.warm)
         for line in lines:
             print(line, flush=True)
         for k, v in got.items():
             launches[k] += v
     P = slip.Pivot
-    dense = [DenseCase("grid16", "grid16", {}, warm=3)]
+    dense = [DenseCase("grid16", "grid16", {}, warm=1)]
     dense += [DenseCase(f"tri200 {p.name}", "tri200", {"pivot": p},
                         factor_check=p in (P.SMALLEST, P.TOL_LARGEST))
               for p in P]
@@ -1007,6 +1362,31 @@ def main() -> int:
               DenseCase("grid24", "grid24", {})]
     for case in dense:
         lines, got = dense_path(slip, torch, case)
+        for line in lines:
+            print(line, flush=True)
+        for k, v in got.items():
+            launches[k] += v
+    # the sharded fused solve at world size 1: one rank, one NCCL group
+    import tempfile
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    store = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store.name, "store"), 1), rank=0, world_size=1)
+    base = {c.label: c for c in cases}
+    shard = [ShardCase("uni10k", "uni10k", warm=3),
+             ShardCase("uni100k-default", "uni100k", warm=1,
+                       base=base["uni100k-default"]),
+             # a new Analysis: the transversal pivots cancel, so the first
+             # call climbs the ladder to the bound and falls back (the
+             # reference's rule); the warm call runs on the pinned rows
+             ShardCase("tri1000", "tri1000", warm=1, fallback=(0,),
+                       segmented=True),
+             ShardCase("cancel4", "cancel4", order=slip.Ordering.NONE,
+                       fallback=(0,))]
+    for case in shard:
+        lines, got = sharded_path(slip, torch, case)
         for line in lines:
             print(line, flush=True)
         for k, v in got.items():
@@ -1020,14 +1400,21 @@ def main() -> int:
         print(line, flush=True)
     for line in dense_busy_share(slip, torch, dense[0]):
         print(line, flush=True)
+    for line in shard_busy_share(torch, shard[0]):
+        print(line, flush=True)
     klines, rep = stream_checks(slip, torch, cases[0])
     rlines, rep["relift_gt"] = boundary_checks(torch, cases[2])
     glines = grouped_segment_check(slip, torch)
     mlines, rep["mul_shared"] = k5_checks(torch)
-    for line in klines + rlines + glines + mlines:
+    slines, srep = shard_kernel_checks(slip, torch, shard[0])
+    rep.update(srep)
+    for line in klines + rlines + glines + mlines + slines:
         print(line)
+    dist.destroy_process_group()
+    store.cleanup()
     kernels = []
     ref = "slip_lu_tpu/tpu/factor_fused.py"
+    shard_ref = "slip_lu_tpu/parallel/factor_fused_shard.py"
     for name, source, replaces in (
             ("factor_stream", "slip_lu_tpu_torch/csrc/fused.cu",
              f"{ref}:735"),
@@ -1036,7 +1423,11 @@ def main() -> int:
             ("relift_gt", "slip_lu_tpu_torch/csrc/relift.cu",
              "slip_lu_tpu/tpu/relift.py:89"),
             ("mul_shared", "slip_lu_tpu_torch/csrc/mul_shared.cu",
-             "slip_lu_tpu/ops/pallas_kernels.py:103")):
+             "slip_lu_tpu/ops/pallas_kernels.py:103"),
+            ("ab_chunk", "slip_lu_tpu_torch/csrc/fused_shard.cu",
+             f"{shard_ref}:53"),
+            ("c_chunk", "slip_lu_tpu_torch/csrc/fused_shard.cu",
+             f"{shard_ref}:157")):
         err, ms, plain_ms, bound_ms, bound_by = rep[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

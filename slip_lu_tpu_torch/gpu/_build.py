@@ -41,6 +41,12 @@ _SIGNATURES = {
     "slip_relift_gt": [_P] * 4 + [_I] * 6 + [_P],
     # a s out | B La Ls D | stream
     "slip_mul_shared": [_P] * 3 + [_I] * 4 + [_P],
+    # meta ev1 bidx mbc diag val SMT GT TZ flags bc_out obuf | H C1 CB8 W8
+    # Wt WN WQ WV WI8 L nwarps | stream
+    "slip_ab_chunk": [_P] * 12 + [_I] * 11 + [_P],
+    # meta ev2 bidx bc a_src val SMT GT TZ flags obuf | H C2 W8 Wt WN WQ WV
+    # WI8 L nwarps | stream
+    "slip_c_chunk": [_P] * 11 + [_I] * 10 + [_P],
 }
 
 

@@ -197,9 +197,12 @@ def _pass_ref(ev, cnt, tgt, asrc, bsrc, SMT, GT, TZ, flags, flag_slot, *,
     tgt[t] = q[:Wo].T.to(_I32)
 
 
-def _heads_ref(hm, val, SMT, GT, TZ, flags, *, H, W8, WN, WQ, WV):
+def _heads_ref(hm, val, SMT, GT, TZ, flags, *, H, W8, WN, WQ, WV,
+               diag=None):
     """The chunk's pivot heads one after another (``_heads_phase``);
-    returns [(k, rho_w)] of the live heads for the lift."""
+    returns [(k, rho_w)] of the live heads for the lift. diag: None to
+    read head t's diagonal from val[slot], else from row t of diag (the
+    sharded path's all-reduced diagonals, the reference's ``diag_ext``)."""
     nh, fl = int(hm[3 * H]), int(hm[3 * H + 3])
     lifts = []
     R_prev = None
@@ -211,7 +214,7 @@ def _heads_ref(hm, val, SMT, GT, TZ, flags, *, H, W8, WN, WQ, WV):
             continue
         slot, dv = int(hm[H + t]), int(hm[2 * H + t])
         live = t < nh
-        x = _col(val[slot])
+        x = _col(val[slot] if diag is None else diag[t])
         if (fl & 256) and dv != k:
             chain = t > 0 and int(hm[t - 1]) == k - 1
             mult = R_prev[:W8] if chain else _col(SMT[k])

@@ -303,12 +303,23 @@ def build_event_stream_grouped(sched: SparseSchedule, gr: Grouping,
     clone slots merged by deferred determinant scaling (module
     docstring).
 
-    p (the chip-partitioned form of the sharded path) is not ported:
-    any value but None raises. Returns an EventStream with
-    ndet/nxx/extra init metadata."""
-    if p is not None:
-        raise NotImplementedError(
-            "the chip-partitioned (sharded) grouped stream is not ported")
+    With p set, builds the CHIP-PARTITIONED form instead (the sharded
+    flagship, parallel/stream_shard_fused.py): identical emission order
+    and hazard cuts, but events bin into per-chip lists with per-chip
+    capacities — the global chunk capacity is p times larger, and with
+    G independent groups feeding every chunk the capacity actually
+    BINDS (ungrouped streams hazard-cut at ~1.5 elimination steps and
+    never fill it). Ownership is cyclic by row, extended to the
+    grouped extras so every pass-2 A operand stays on its target's
+    chip (the IPGE row-locality argument):
+      * clone(s, gi) lives on row(s)'s chip — group events updating it
+        read their L operand from the same original row;
+      * sp/pd scratch slots live on the chip owning group 1's last
+        diagonal (the PD chain's only A-operand entry point);
+      * the constant m1 slot is REPLICATED (it is the A operand of
+        merge accumulates, whose targets are spread over all chips);
+      * one_g constants sit on chip 0 (head/B-broadcast only).
+    Returns a ShardedEventStream with ndet/nxx/extra init metadata."""
     n, E0 = sched.n, sched.nnz
     G = len(gr.groups)
     group_of, lrank = gr.group_of, gr.lrank
@@ -380,7 +391,27 @@ def build_event_stream_grouped(sched: SparseSchedule, gr: Grouping,
 
     hist: Dict[int, int] = {}                   # slot -> current row
     H, C1, C2 = heads_per_chunk, pass1_events, pass2_events
-    fb = _ChunkBuilder(H, C1, C2, E)
+    if p is None:
+        fb = _ChunkBuilder(H, C1, C2, E)
+    else:
+        from ..parallel.stream_shard_fused import _ShardChunkBuilder
+        owner = np.zeros(E, np.int64)
+        owner[:E0] = np.asarray(row_of[:E0], np.int64) % p
+        pd_owner = int(row_of[last_diag[0]]) % p
+        for i in range(2, G + 1):
+            owner[sp_slot[i]] = pd_owner
+            owner[pd_slot[i]] = pd_owner
+        owner[m1_slot] = -1                     # replicated constant
+        for (s, gi), c in clone.items():
+            owner[c] = int(row_of[s]) % p
+
+        def owner_t(s: int) -> int:
+            if s >= E:
+                return 0
+            o = int(owner[s])
+            return 0 if o < 0 else o
+
+        fb = _ShardChunkBuilder(p, owner_t, owner_t, H, C1, C2, E)
 
     # 1. gap identity rows (one virtual skip-fix head per group; their
     # k values are non-adjacent so no chain-refine fires)
@@ -487,7 +518,21 @@ def build_event_stream_grouped(sched: SparseSchedule, gr: Grouping,
             x_next += 1
     nxx = x_next - (n + 1)
     xhist: Dict[int, int] = {}
-    sb = _ChunkBuilder(0, C1, C2, n, dummy_a=E, dummy_b=n)
+    if p is None:
+        sb = _ChunkBuilder(0, C1, C2, n, dummy_a=E, dummy_b=n)
+    else:
+        # X rows: cyclic by row; clone rows follow their true row's
+        # chip (their A operands live in that row)
+        xowner = np.zeros(n + 1 + nxx, np.int64)
+        xowner[:n] = np.arange(n, dtype=np.int64) % p
+        for (r2, gi), xr in x_clone.items():
+            xowner[xr] = r2 % p
+
+        def owner_x(i: int) -> int:
+            return int(xowner[i]) if i < len(xowner) else 0
+
+        sb = _ShardChunkBuilder(p, owner_x, owner_x, 0, C1, C2, n,
+                                dummy_a=E, dummy_b=n)
 
     def emit_fwd(k: int) -> None:
         CUR = cur_row(k)
@@ -583,6 +628,24 @@ def build_event_stream_grouped(sched: SparseSchedule, gr: Grouping,
     lvl[TB:] = n
     for rr in pd_rows:
         lvl[int(rr)] = n
+
+    if p is not None:
+        from ..parallel.stream_shard_fused import (ShardedEventStream,
+                                                   _partition_value_table,
+                                                   sharded_chunk_levels)
+        factor.max_level = sharded_chunk_levels(factor, lvl)
+        solve.max_level = sharded_chunk_levels(solve, lvl)
+        row_all = np.concatenate(
+            [row_of, [np.int32(n)]]).astype(np.int32)
+        ses = ShardedEventStream(
+            n=n, nnz=E, p=p, init_pos=sched.init_pos, row_of=row_all,
+            factor=factor, solve=solve, lnz=sched.lnz, unz=sched.unz,
+            ndet=R, nxx=nxx)
+        _partition_value_table(ses, owner=owner,
+                               repl=(m1_slot,),
+                               extra_pos=np.asarray(extra_pos, np.int64),
+                               extra_vals=list(extra_vals))
+        return ses
 
     for sc in (factor, solve):
         for c in range(sc.nchunks):
@@ -703,8 +766,8 @@ def try_build_grouped(sched: SparseSchedule, heads_per_chunk: int = 8,
                       pass1_events: int = 32, pass2_events: int = 128,
                       n_groups: int = 8, p: Optional[int] = None):
     """Grouped stream if the dependency forest decomposes usefully,
-    else None (caller falls back to the ungrouped builder). p must be
-    None (the sharded form is not ported)."""
+    else None (caller falls back to the ungrouped builder). With p,
+    the chip-partitioned (sharded) form."""
     parent = dependency_forest(sched)
     gr = partition_groups(parent, n_groups=n_groups)
     if gr is None:

@@ -19,6 +19,7 @@ from slip_lu_tpu.tpu.backslash_fused import factorize_solve_tpu_fused
 from slip_lu_tpu_torch.gpu.backslash_fused import factorize_solve_cuda_fused
 
 from conftest import random_sparse_int
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MATS = os.path.join(REPO, "data", "ExampleMats")

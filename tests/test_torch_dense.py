@@ -29,6 +29,7 @@ from slip_lu_tpu_torch.gpu import fused as port_fused
 from slip_lu_tpu_torch.gpu import solve as port_solve
 from slip_lu_tpu_torch.gpu.backslash_cuda import _tol_dyadic
 from slip_lu_tpu_torch.options import Pivot
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 N, W, WS = 7, 3, 6
 

@@ -18,6 +18,7 @@ import slip_lu_tpu_torch as port
 from slip_lu_tpu_torch.gpu.backslash_cuda import factor_cuda
 
 from conftest import random_sparse_int
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 
 def _rows(n, seed, lo=-9, hi=9, density=0.5):

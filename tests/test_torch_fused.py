@@ -35,6 +35,7 @@ from slip_lu_tpu_torch.gpu import factor_fused as ff
 
 from conftest import random_sparse_int
 from test_stream import replay_stream
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -355,3 +355,111 @@ def test_dense_backslash_on_card_matches_oracle(cuda, name):
     for i in range(x.m):
         for c in range(x.n):
             assert x.x[i, c] == x_host.x[i, c], (i, c)
+
+
+def _shard_states(name, p, W8, Ws8, WI, dev):
+    """A p-rank plan of ``name`` with every rank's streams and tables on
+    dev (the widths must hold its values: no flag is expected)."""
+    from slip_lu_tpu_torch.parallel import driver_fused as df
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
+    A, b = _read(name)
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    n = A.n
+    opts = port.Options()
+    _, r, ses, avals, _ = df.plan_sharded(A, port.analyze(A, opts), p, opts)
+    arrays = df.stream_arrays(ses, n)
+    rows = ff.ints_to_tc_rows(avals, W8)
+    n8 = ff._r8((n if ses.ndet is None else ses.ndet) + 2)
+    X = np.zeros((ff._r8(n + 1 + ses.nxx), Ws8), np.int32)
+    X[:n] = ff.ints_to_tc_rows([int(bz.x[int(r[k]), 0]) for k in range(n)],
+                               Ws8)
+    chs, states = [], []
+    for k in range(p):
+        v = np.zeros((ff._r8(ses.Lp), W8), np.int32)
+        mine = ses.init_chip == k
+        v[ses.init_loc[mine]] = rows[mine]
+        if ses.extra_chip is not None and len(ses.extra_chip):
+            em = ses.extra_chip == k
+            v[ses.extra_loc[em]] = ff.ints_to_tc_rows(ses.extra_vals, W8)[em]
+        tabs = [np.zeros((n8, w), np.int32) for w in (W8, WI, 8)]
+        tabs[0][0, 0] = tabs[1][0, 0] = 1
+        rs = ffs.rank_streams(k, dev, *arrays)
+        chs.append((rs.factor, rs.solve))
+        states.append({key: torch.from_numpy(t).to(dev) for key, t in zip(
+            ("val", "SMT", "GT", "TZ", "X", "flags", "sflags"),
+            (v, *tabs, X, np.zeros(8, np.int32), np.zeros(8, np.int32)))})
+    return chs, states
+
+
+@pytest.mark.parametrize("name,p,W8,Ws8", [
+    ("tri200", 1, 40, 72),
+    ("tri200", 2, 40, 72),      # both ranks of a p = 2 plan, sums by hand
+    ("sparse30", 3, 16, 24),
+])
+def test_shard_kernels_match_plain_versions(cuda, name, p, W8, Ws8):
+    """K6 and K7 over a whole p-rank factor stream and one solve stream,
+    every rank in this process (the diagonal and B sums by hand), against
+    their plain versions on the same card: bit-equal tables and flags."""
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
+    WI = ff._r8(max(W8, Ws8) + 2)
+    chs, kst = _shard_states(name, p, W8, Ws8, WI, cuda)
+    _, pst = _shard_states(name, p, W8, Ws8, WI, cuda)
+    before = ffs.ab_chunk.launches, ffs.c_chunk.launches
+    nf, ns = chs[0][0].nchunks, chs[0][1].nchunks
+    for part, nc, solve in ((0, nf, False), (1, ns, True)):
+        cs = [c[part] for c in chs]
+        for c in range(nc):
+            for sts, plain in ((kst, False), (pst, True)):
+                bcs = ffs.local_ab(cs, c, sts, solve, plain)
+                ffs.local_c(cs, c, sts, sum(bcs), solve, plain)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(kst, pst)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (k, key)
+        assert not a["flags"].any() and not a["sflags"].any()
+    assert (ffs.ab_chunk.launches, ffs.c_chunk.launches) == (
+        before[0] + p * (nf + ns), before[1] + p * (nf + ns))
+
+
+def _cancel4():
+    """In natural order this system's 2x2 leading minor cancels."""
+    A = port.SlipMatrix.from_dense(np.array(
+        [[2, 1, 0, 3], [4, 2, 1, 0], [0, 1, 5, 1], [3, 0, 1, 4]],
+        dtype=object), port.Type.MPZ)
+    b = port.SlipMatrix.from_dense(np.array([[1], [2], [3], [4]],
+                                            dtype=object), port.Type.MPZ)
+    return A, b
+
+
+@pytest.mark.parametrize("name", ["tri200", "sparse30", "multirhs15",
+                                  "cancel4"])
+def test_sharded_solve_on_card_matches_oracle(cuda, tmp_path, name):
+    """factorize_solve_cuda_fused_sharded at world size 1 in a one-rank
+    NCCL group: exact, through K6 and K7; the cancelling system takes the
+    single-chip fallback and reports it."""
+    import torch.distributed as dist
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
+    from slip_lu_tpu_torch.parallel import (
+        factorize_solve_cuda_fused_sharded)
+    A, b = _cancel4() if name == "cancel4" else _read(name)
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    opts = port.Options(order=port.Ordering.NONE) if name == "cancel4" \
+        else port.Options()
+    x_host = port.backslash(A, b, port.Type.MPQ, opts, backend="host")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        before = ffs.ab_chunk.launches, ffs.c_chunk.launches
+        x = factorize_solve_cuda_fused_sharded(A, port.analyze(A, opts), b,
+                                               options=opts, device="cuda")
+        st = port.last_stats()
+    finally:
+        dist.destroy_process_group()
+    assert st.backend == "cuda-fused-sharded"
+    assert st.fallback == (name == "cancel4")
+    assert ffs.ab_chunk.launches > before[0]
+    assert ffs.c_chunk.launches > before[1]
+    for i in range(x.m):
+        for c in range(x.n):
+            assert x.x[i, c] == x_host.x[i, c], (i, c)

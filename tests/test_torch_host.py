@@ -7,10 +7,12 @@ be byte-equal, and the oracle must give equal rationals.
 """
 
 import dataclasses
+import gc
 import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
@@ -23,6 +25,18 @@ from slip_lu_tpu_torch.gpu import schedule_stream as port_stream
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MATS = os.path.join(REPO, "data", "ExampleMats")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax():
+    """Drop the module's compiled JAX programs when it is done. Each one
+    holds JIT memory maps, an xdist worker runs many modules in one
+    process, and a process's map count is capped (vm.max_map_count): the
+    JAX package's heaviest interpret-mode tests need most of it. The
+    port's test modules that call the JAX package import this fixture."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _mat(pkg, name):
@@ -96,6 +110,11 @@ def test_import_leaves_jax_out():
         "import slip_lu_tpu_torch.gpu.backslash_cuda\n"
         "import slip_lu_tpu_torch.ops.matarith\n"
         "import slip_lu_tpu_torch.ops.mul_shared\n"
+        "import slip_lu_tpu_torch.parallel\n"
+        "import slip_lu_tpu_torch.parallel.driver_fused\n"
+        "import slip_lu_tpu_torch.parallel.factor_fused_shard\n"
+        "import slip_lu_tpu_torch.parallel.shard\n"
+        "import slip_lu_tpu_torch.parallel.stream_shard_fused\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'slip_lu_tpu' or m.startswith('slip_lu_tpu.')]\n"
         "assert not bad, bad\n")

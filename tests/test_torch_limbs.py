@@ -13,6 +13,7 @@ import torch
 
 from slip_lu_tpu.ops import pallas_limbs as pk
 from slip_lu_tpu_torch.ops import device_limbs as dl
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 M16 = 0xFFFF
 SEEDS = [0, 1]

@@ -18,6 +18,7 @@ from slip_lu_tpu.ops import matarith as ref_mt
 from slip_lu_tpu.ops.limbs import ints_to_limbs, limbs_to_ints
 from slip_lu_tpu_torch.ops import arith as ar
 from slip_lu_tpu_torch.ops import matarith as mt
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 W = 6
 RNG_SEED = 2024

@@ -20,6 +20,7 @@ from slip_lu_tpu.ops import matarith as ref_mt
 from slip_lu_tpu.ops import pallas_kernels as pk
 from slip_lu_tpu_torch.ops import matarith as mt
 from slip_lu_tpu_torch.ops import mul_shared as ms
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ import torch
 from slip_lu_tpu.tpu import relift as ref
 from slip_lu_tpu.tpu.factor_fused import ints_to_tc_rows
 from slip_lu_tpu_torch.gpu import relift as rl
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 
 def _tables(seed, n8, W8, WIo):

@@ -23,6 +23,7 @@ from slip_lu_tpu_torch.gpu import relift as rl
 from conftest import random_sparse_int
 from test_segments import _force_split
 from test_torch_host import MATS
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 KW = dict(heads_per_chunk=2, pass1_events=8, pass2_events=16)
 

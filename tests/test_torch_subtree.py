@@ -33,6 +33,7 @@ from slip_lu_tpu_torch.gpu.schedule import _permute_cols as port_permute
 
 from conftest import random_sparse_int
 from test_torch_host import MATS, _assert_fields_equal
+from test_torch_host import release_jax  # noqa: F401 (autouse)
 
 
 def _random(pkg, n, density, seed):
@@ -141,11 +142,22 @@ def test_grouped_streams_byte_equal(case):
 
 
 def test_sharded_form_is_not_ported():
-    A, _ = _random(port, 40, 0.10, 2)
-    q = np.asarray(port.analyze(A, port.Options()).q, np.int64)
-    sched, _ = port_native.build_schedule_best(A, q, None)
-    with pytest.raises(NotImplementedError):
-        port_sub.try_build_grouped(sched, 8, 64, 128, p=2)
+    """The chip-partitioned (sharded) grouped stream, once left out of the
+    port, is now the reference's: try_build_grouped(p=2) gives the same
+    partitioned stream in both packages (tests/test_torch_shard_stream.py
+    holds every field, at more ranks and on more systems)."""
+    built = []
+    for pkg, native, sub in ((ref, ref_native, ref_sub),
+                             (port, port_native, port_sub)):
+        A, _ = _random(pkg, 40, 0.10, 2)
+        q = np.asarray(pkg.analyze(A, pkg.Options()).q, np.int64)
+        sched, _ = native.build_schedule_best(A, q, None)
+        built.append(sub.try_build_grouped(sched, 8, 64, 128, p=2))
+    s0, s1 = built
+    assert type(s1).__name__ == "ShardedEventStream" and s1.p == 2
+    assert (s0.ndet, s0.nxx, s0.Lp) == (s1.ndet, s1.nxx, s1.Lp)
+    for part in ("factor", "solve"):
+        _assert_fields_equal(getattr(s0, part), getattr(s1, part), part)
 
 
 def _grouped_plan(pkg, native, sub, permute):
