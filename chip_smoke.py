@@ -19,8 +19,9 @@ Analysis that call built, the way the JAX package's bench.py times its
 solves.
 
 The dense exact solve (backend="cuda", every shared multiply through K5)
-on grid16 (n = 256, the reference's dense cap: one cold ``backslash`` and
-one warm ``factorize_solve_cuda`` call on its Analysis), tri200 under
+on grid16 (n = 256, the reference's dense cap: one cold ``backslash``;
+a warm ``factorize_solve_cuda`` on its Analysis in the busy share, held
+to the host oracle there), tri200 under
 all six pivot schemes (``factor_cuda`` held to the host ``factorize`` for
 SMALLEST and TOL_LARGEST), sparse100 with ``max_limbs=2`` (the width
 ladder climbs) and grid24 (n = 576, one cold call: the scale line), each
@@ -40,6 +41,19 @@ pivots cancel (it must take the single-chip fallback and report it); each
 held to the host oracle and to check_solution, K6 and K7 counted,
 all-reduces counted per solve.
 
+The member modes of K2 and K3 (one block a member): uni10k and uni100k
+(default ordering) with 8 right-hand sides, b and 7 seeded columns, in
+two warm solves on the fused cases' Analyses (the first may climb the
+width ladder; the second runs at the settled widths), all of them the
+lanes of one solve run, column 0 held to the one-column solve and every
+column to check_solution; a family of 16 systems on uni10k's pattern
+(``factorize_solve_cuda_fused_many``, one cold and one warm call on one
+Analysis, every member held to check_solution and members 0 and 1 to the
+host oracle, the plan it took printed); and tri1000 under
+``Options(pivot=SMALLEST, pivot_exact=True)`` through cuda-fused and the
+sharded driver at world size 1, both equal to the host oracle under the
+same options.
+
 Then the card's busy share (torch.profiler: one ``backslash`` call on
 uni10k, one solve on a reused Analysis for every fused case, for grid16
 and for the sharded uni10k), and every kernel held to its plain PyTorch
@@ -48,13 +62,20 @@ ladder settled on, timed whole and compared on its first 300 chunks, and
 clamped below need on the shortest overflowing prefix); K4 on uni100k's
 real segment-boundary tables and on a synthetic table at WIn >= 256; K2
 on uni100k's second factor segment (its tables handed in) and K3 on its
-widest solve segment (timed whole, compared on its first tenth); the
+widest solve segment (timed whole, compared on its first tenth), and at
+8 lanes on the lanes' widest segment (compared on its first fortieth); the
 whole segmented, grouped device half (``fused_solve_all``) on a dissected
 band, against the same call on CPU copies; and K5 at grid16's shapes (rho
 x M, the division, a Hensel step), on a worst-case ripple and at grid24's
 179-limb division; K6 and K7 on prefixes of the factor and the solve
 stream of uni10k's sharded plan at p = 1 (timed) and on ranks 0 and 1 of
-a p = 2 plan, run one after the other with the sums taken by hand. Every
+a p = 2 plan, run one after the other with the sums taken by hand; K2 and
+K3 at 16 members on the family's streams (timed whole beside member 0
+alone, compared on their first 25 chunks), and again with members 1-15
+carrying values drawn from uni10k's entries (their flags diverge; the
+host factorize on the pinned rows counts the members that cancel), and
+K3 at 8 lanes on uni10k's
+solve stream (timed whole, compared on its first 300 chunks). Every
 comparison is bit equality: all values are exact integers. Exits non-zero
 on any failure, and when there is no CUDA device or no slip_lu_tpu_torch
 beside it.
@@ -83,6 +104,11 @@ MATS = os.path.join(HERE, "data", "ExampleMats")
 # 16-bit limb product, so 2.47e14 limb products/s.
 HBM_BYTES_PER_S = 3.35e12
 LIMB_PRODUCTS_PER_S = 1979e12 / 2 / 4
+
+# The member modes of K2 / K3 on the main path: a family of FAMILY_G
+# systems on uni10k's pattern, and LANES_R right-hand sides of one system.
+FAMILY_G = 16
+LANES_R = 8
 
 
 def _fail(msg: str) -> None:
@@ -123,16 +149,39 @@ class Case:
     ana: object = None
     b: object = None
     opts: object = None
+    x_host: object = None    # the host oracle's solution
+    warm_s: tuple = ()       # median warm solve and its device phase (s)
+    lanes: tuple = ()        # LANES_R lanes' settled (W, Ws, ssegments)
 
 
 def _counters():
+    """Each kernel's launch count: (wrapper, attribute). The member modes of
+    K2 / K3 count their own launches (G > 1 systems, R > 1 right-hand
+    sides)."""
     from slip_lu_tpu_torch.gpu import factor_fused as ff
     from slip_lu_tpu_torch.gpu import relift as rl
     from slip_lu_tpu_torch.ops import mul_shared as ms
     from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
-    return {"factor_stream": ff.factor_stream, "solve_stream": ff.solve_stream,
-            "relift_gt": rl.relift_gt, "mul_shared": ms.mul_shared_limbs,
-            "ab_chunk": ffs.ab_chunk, "c_chunk": ffs.c_chunk}
+    return {"factor_stream": (ff.factor_stream, "launches"),
+            "solve_stream": (ff.solve_stream, "launches"),
+            "relift_gt": (rl.relift_gt, "launches"),
+            "mul_shared": (ms.mul_shared_limbs, "launches"),
+            "ab_chunk": (ffs.ab_chunk, "launches"),
+            "c_chunk": (ffs.c_chunk, "launches"),
+            f"factor_stream[G={FAMILY_G}]": (ff.factor_stream,
+                                             "member_launches"),
+            f"solve_stream[G={FAMILY_G}]": (ff.solve_stream,
+                                            "member_launches"),
+            f"solve_stream[R={LANES_R}]": (ff.solve_stream, "lane_launches")}
+
+
+def _zero_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def _keep_analysis():
@@ -167,9 +216,7 @@ def main_path(slip, torch, case: Case, warm: int):
     t0 = time.perf_counter()
     x_host = slip.backslash(A, b, slip.Type.MPQ, opts, backend="host")
     host_s = time.perf_counter() - t0
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts()
     # keep the Analysis the cold call builds (backslash makes its own)
     built, undo = _keep_analysis()
     # the driver prints each rung of its width ladder (widths, segments,
@@ -204,7 +251,7 @@ def main_path(slip, torch, case: Case, warm: int):
         dev_times.append(stw.phases.get("device", 0.0))
         if stw.fallback or not _same_x(xw, x_host):
             _fail(f"{case.label}: warm solve differs from the host oracle")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counts()
     es = ana.fused_cache[1][2]
     segments, ssegments = ana.fused_seg_cache[2], ana.fused_seg_cache[4]
     if case.grouped and es.grouped is None:
@@ -216,6 +263,8 @@ def main_path(slip, torch, case: Case, warm: int):
         if launches[k] == 0:
             _fail(f"{case.label}: the main path never launched {k}")
     case.A2, case.ana, case.b, case.opts = A2, ana, b, opts
+    case.x_host = x_host
+    case.warm_s = (statistics.median(times), statistics.median(dev_times))
     out = [
         f"main path {case.label}: n={A.n} nnz={st.nnz} W8={st.W} "
         f"Ws8={st.Ws} retries={st.retries} grouped="
@@ -241,13 +290,13 @@ class DenseCase:
     label: str
     name: str
     fields: dict             # Options fields beside check=True
-    warm: int = 0            # warm solves on the cold call's Analysis
     factor_check: bool = False   # factor_cuda against the host factorize
     retries: bool = False    # the width ladder must climb
     A2: object = None        # CSC x MPZ copy and the cold call's Analysis
     ana: object = None
     b: object = None
     opts: object = None
+    x_host: object = None    # the host oracle's solution
 
 
 def _same_factorization(F, G) -> bool:
@@ -259,15 +308,14 @@ def _same_factorization(F, G) -> bool:
 
 def dense_path(slip, torch, case: DenseCase):
     """One dense case: the host oracle, one cold ``backslash(...,
-    backend="cuda", device="cuda")`` (its Analysis kept), warm solves
-    through ``factorize_solve_cuda`` on that Analysis, and, where asked,
-    ``factor_cuda`` against the host ``factorize``. Every answer is held to
-    the oracle (and to check=True inside the cold call). The launch counts
-    are set to 0 before the case and read after it."""
+    backend="cuda", device="cuda")`` (its Analysis kept for the busy
+    share's warm solve), and, where asked, ``factor_cuda`` against the host
+    ``factorize``. Every answer is held to the oracle (and to check=True
+    inside the cold call). The launch counts are set to 0 before the case
+    and read after it."""
     from slip_lu_tpu_torch.convert import matrix_copy
     from slip_lu_tpu_torch.factorize import factorize
-    from slip_lu_tpu_torch.gpu.backslash_cuda import (factor_cuda,
-                                                      factorize_solve_cuda)
+    from slip_lu_tpu_torch.gpu.backslash_cuda import factor_cuda
     from slip_lu_tpu_torch.matrix import Kind, Type
 
     A, b = _load(slip, case.name)
@@ -275,9 +323,7 @@ def dense_path(slip, torch, case: DenseCase):
     t0 = time.perf_counter()
     x_host = slip.backslash(A, b, slip.Type.MPQ, opts, backend="host")
     host_s = time.perf_counter() - t0
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts()
     built, undo = _keep_analysis()
     try:
         torch.cuda.synchronize()
@@ -300,16 +346,6 @@ def dense_path(slip, torch, case: DenseCase):
     cold = dict(st.phases)
     A2 = matrix_copy(A, Kind.CSC, Type.MPZ, opts)
     ana = built[0]
-    times, dev_times = [], []
-    for _ in range(case.warm):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xw = factorize_solve_cuda(A2, ana, b, opts, device="cuda")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        dev_times.append(slip.last_stats().phases.get("device", 0.0))
-        if not _same_x(xw, x_host):
-            _fail(f"{case.label}: warm solve differs from the host oracle")
     fac = ""
     if case.factor_check:
         t0 = time.perf_counter()
@@ -320,29 +356,26 @@ def dense_path(slip, torch, case: DenseCase):
             _fail(f"{case.label}: factor_cuda differs from the host "
                   "factorize")
         fac = f"; factor_cuda {f_s:.3f} s equals the host factorize"
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counts()
     if launches["mul_shared"] == 0:
         _fail(f"{case.label}: the dense path never launched mul_shared")
     case.A2, case.ana, case.b, case.opts = A2, ana, b, opts
+    case.x_host = x_host
     out = [f"dense {case.label}: n={A.n} nnz={st.nnz} W={st.W} Ws={st.Ws} "
            f"retries={st.retries} exact=oracle, check=True; cold backslash "
            f"{cold_s:.3f} s, phases (s): " + ", ".join(
                f"{k} {v:.3f}" for k, v in cold.items())
            + f"; peak device memory {peak_gb:.2f} GB; host oracle "
            f"{host_s:.3f} s{fac}"]
-    if times:
-        out.append(f"  warm solves on the reused Analysis: median "
-                   f"{statistics.median(times):.3f} s (device "
-                   f"{statistics.median(dev_times):.3f} s) over "
-                   f"{case.warm}")
     out.append(f"  launches {launches}")
     return out, launches
 
 
 def dense_busy_share(slip, torch, case: DenseCase):
-    """torch.profiler over one warm dense solve: device time over the
-    host-clock wall time, K5's part of it, and the operations that take
-    the most device time."""
+    """torch.profiler over one warm dense solve on the cold call's Analysis,
+    its answer held to the host oracle: device time over the host-clock
+    wall time, K5's part of it, and the operations that take the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from slip_lu_tpu_torch.gpu.backslash_cuda import factorize_solve_cuda
@@ -351,10 +384,13 @@ def dense_busy_share(slip, torch, case: DenseCase):
     # events would double the trace
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        factorize_solve_cuda(case.A2, case.ana, case.b, case.opts,
-                             device="cuda")
+        x = factorize_solve_cuda(case.A2, case.ana, case.b, case.opts,
+                                 device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    st = slip.last_stats()
+    if st.fallback or not _same_x(x, case.x_host):
+        _fail(f"{case.label}: warm solve differs from the host oracle")
     dev_ms, per, by_name = _device_ms(prof)
     if dev_ms == 0.0:
         return [f"busy share dense {case.label}, Analysis reused: not "
@@ -364,7 +400,7 @@ def dense_busy_share(slip, torch, case: DenseCase):
     events = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return [f"busy share dense {case.label}, Analysis reused (profiler on):"
-            f" wall {wall:.3f} s, device {dev_ms / 1e3:.3f} s, "
+            f" = host oracle; wall {wall:.3f} s, device {dev_ms / 1e3:.3f} s, "
             f"{100 * dev_ms / 1e3 / wall:.1f}%, {events} device events; "
             f"mul_shared {per['mul_shared']:.1f} ms in {k5} launches",
             "  device time by name: " + "; ".join(
@@ -684,7 +720,7 @@ def _synthetic_relift_tables(torch, ff):
     return [torch.from_numpy(t).to("cuda") for t in (S, G, Z)]
 
 
-def boundary_checks(torch, case: Case):
+def boundary_checks(slip, torch, case: Case):
     """The kernels against their plain versions on the card at the shapes
     uni100k's two-segment path gives them: K4 on the real tables after
     factor segment 0 (SMT widened to segment 1's width), K2 on segment 1
@@ -806,6 +842,55 @@ def boundary_checks(torch, case: Case):
         f"WI={WIf}): {k_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by}); on "
         f"chunks {slo}-{phi} bit-equal, {pk_ms:.3f} ms vs plain "
         f"{p_ms:.3f} ms")
+
+    # K3 with LANES_R right-hand sides (the tables shared) on the solve
+    # segments the lanes settled on (their seeded columns need a wider
+    # solve than b): X of R lanes through the earlier segments, then the
+    # widest segment timed whole and held to the plain version on its
+    # first fortieth (the plain version takes seconds a chunk at R lanes)
+    _, _, lsegs = case.lanes
+    lane = dict(G=LANES_R, a_g=False, tab_g=False)
+    WsL = lsegs[-1][2]
+    WIL = ff._r8(WsL + 2)
+    GTL = rl.relift_gt(SMT, GT, TZ, w1, WIf, WIL) if WIf < WIL else GT
+    WIL = max(WIL, WIf)
+    XR = _lane_x(slip, torch, ff, case.b, r, n, LANES_R, 8, lsegs[0][2],
+                 es.nxx)
+    pWs = lsegs[0][2]
+    for slo_, shi_, Ws_s in lsegs[:-1]:
+        XR = rl.widen_tc(XR, pWs, Ws_s)
+        XR, _ = ff.solve_stream(ff.chunk_range(st, slo_, shi_, False), val,
+                                SMT, GTL, TZ, XR, w1, Ws_s,
+                                ff._r8(w1 + Ws_s + 2), WIL, **lane)
+        pWs = Ws_s
+    XR = rl.widen_tc(XR, pWs, WsL)
+    rlo, rhi, _ = lsegs[-1]
+    rseg = ff.chunk_range(st, rlo, rhi, False)
+    WNSL = ff._r8(w1 + WsL + 2)
+    kR_ms, skR = _time_ms(torch, lambda: ff.solve_stream(
+        rseg, val, SMT, GTL, TZ, XR, w1, WsL, WNSL, WIL, **lane), 1)
+    if skR[1].any():
+        _fail(f"{case.label}: the widest solve segment at {LANES_R} lanes "
+              f"flagged {skR[1].tolist()}")
+    phiR = rlo + max(1, (rhi - rlo) // 40)
+    pseg = ff.chunk_range(st, rlo, phiR, False)
+    pkR_ms, pkR = _time_ms(torch, lambda: ff.solve_stream(
+        pseg, val, SMT, GTL, TZ, XR, w1, WsL, WNSL, WIL, **lane), 1)
+    pR_ms, spR = _time_ms(torch, lambda: ff.solve_stream_ref(
+        pseg, val, SMT, GTL, TZ, XR, w1, WsL, WNSL, WIL, **lane), 1)
+    errR = _diff(pkR, spR)
+    if errR:
+        _fail(f"{case.label}: the widest solve segment at {LANES_R} lanes "
+              f"differs from the plain version (max |diff| {errR})")
+    ops, nbytes = _solve_bound(rseg, val.shape[0], SMT.shape[0], w1, WsL,
+                               WIL, XR.numel())
+    bR = _bound(LANES_R * ops, nbytes)
+    lines.append(
+        f"solve_stream with {LANES_R} right-hand sides, {case.label} solve "
+        f"segment {len(lsegs) - 1} of the lanes' plan (chunks {rlo}-{rhi}, "
+        f"W8={w1}, Ws8={WsL}, WI={WIL}, tables shared): {kR_ms:.3f} ms, "
+        f"bound {bR[0]:.4g} ms ({bR[1]}); on chunks {rlo}-{phiR} bit-equal, "
+        f"{pkR_ms:.3f} ms vs plain {pR_ms:.3f} ms")
     return lines, report
 
 
@@ -1030,15 +1115,14 @@ def sharded_path(slip, torch, case: ShardCase):
     else:
         A2 = matrix_copy(A, Kind.CSC, Type.MPZ, opts)
         ana = slip.analyze(A2, opts)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    from slip_lu_tpu_torch.parallel import factor_fused_shard as ffs
+    _zero_counts()
     seen, undo = _shard_spy()
     times, dev_times, per_solve = [], [], []
     try:
         for i in range(1 + case.warm):
-            before = (psum.calls, counters["ab_chunk"].launches,
-                      counters["c_chunk"].launches)
+            before = (psum.calls, ffs.ab_chunk.launches,
+                      ffs.c_chunk.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             x = factorize_solve_cuda_fused_sharded(A2, ana, b, None, opts,
@@ -1050,8 +1134,8 @@ def sharded_path(slip, torch, case: ShardCase):
                 first = dict(st.phases)
             dev_times.append(st.phases.get("device", 0.0))
             per_solve.append((psum.calls - before[0],
-                              counters["ab_chunk"].launches - before[1],
-                              counters["c_chunk"].launches - before[2]))
+                              ffs.ab_chunk.launches - before[1],
+                              ffs.c_chunk.launches - before[2]))
             if st.backend != "cuda-fused-sharded" or \
                     st.fallback != (i in case.fallback):
                 _fail(f"sharded {case.label}: {st.summary()}")
@@ -1061,7 +1145,7 @@ def sharded_path(slip, torch, case: ShardCase):
                       "host oracle")
     finally:
         undo()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counts()
     for k in ("ab_chunk", "c_chunk"):
         if launches[k] == 0:
             _fail(f"sharded {case.label}: the main path never launched {k}")
@@ -1302,6 +1386,495 @@ def shard_busy_share(torch, case: ShardCase):
                 f"{k} {v:.1f} ms" for k, v in part.items())]
 
 
+# ---------------------------------------------------------------------------
+# the member modes of K2 / K3: right-hand-side lanes, families, pivot_exact
+# ---------------------------------------------------------------------------
+
+def _int_column(slip, b, n):
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    return [int(bz.x[i, 0]) for i in range(n)]
+
+
+def _with_columns(slip, b, n: int, extra: int, seed: int):
+    """b and `extra` more columns drawn from a seeded generator in the
+    range of b's entries."""
+    import numpy as np
+    col0 = _int_column(slip, b, n)
+    rng = np.random.default_rng(seed)
+    more = rng.integers(min(col0), max(col0) + 1, (n, extra))
+    return slip.SlipMatrix.from_dense(np.array(
+        [[col0[i]] + [int(v) for v in more[i]] for i in range(n)],
+        dtype=object), slip.Type.MPZ)
+
+
+def rhs_lanes_path(slip, torch, case: Case, seed: int = 8):
+    """LANES_R right-hand sides (b and seeded columns) on a case's
+    Analysis, all of them the lanes of one solve-stream run: a first warm
+    solve (its width ladder may climb: the seeded columns can need a wider
+    solve than b alone) and a second one at the settled widths. Column 0
+    must be the one-column solve, every column pass check_solution.
+    Returns the lines and the launches."""
+    from slip_lu_tpu_torch.gpu.backslash_fused import \
+        factorize_solve_cuda_fused
+    n = case.A2.n
+    B = _with_columns(slip, case.b, n, LANES_R - 1, seed)
+    es = case.ana.fused_cache[1][2]
+    one, one_dev = case.warm_s
+    # the later phases (busy share, kernel checks) time the one-column
+    # widths, as in earlier runs: the lanes' settled widths are put back
+    kept = (case.ana.fused_width_cache, case.ana.fused_seg_cache)
+    _zero_counts()
+    lines = []
+    for label in ("first", "settled"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = factorize_solve_cuda_fused(case.A2, case.ana, B, case.opts,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = slip.last_stats()
+        if st.fallback or any(x.x[i, 0] != case.x_host.x[i, 0]
+                              for i in range(n)):
+            _fail(f"{case.label} x {LANES_R} right-hand sides ({label}): "
+                  f"fallback {st.fallback} or column 0 differs from the "
+                  "one-column solve")
+        dev = st.phases.get("device", 0.0)
+        lines.append(
+            f"rhs lanes {case.label} ({label} warm solve): {LANES_R} "
+            f"right-hand sides, grouped={es.grouped is not None}, W8={st.W} "
+            f"Ws8={st.Ws} retries={st.retries}: {wall:.3f} s (device "
+            f"{dev:.3f} s) against {one:.3f} s (device {one_dev:.3f} s) for "
+            "one column; phases (s): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in st.phases.items()))
+    case.lanes = (*case.ana.fused_width_cache, case.ana.fused_seg_cache[4])
+    case.ana.fused_width_cache, case.ana.fused_seg_cache = kept
+    t0 = time.perf_counter()
+    slip.check_solution(case.A2, x, B)
+    chk = time.perf_counter() - t0
+    launches = _read_counts()
+    if launches[f"solve_stream[R={LANES_R}]"] == 0:
+        _fail(f"{case.label} x {LANES_R}: no lane launch ({launches})")
+    lines.append(f"  column 0 = the one-column solve in both, all {LANES_R} "
+                 f"columns check_solution ({chk:.1f} s); launches {launches}")
+    return lines, launches
+
+
+def _family(slip, name: str, G: int, seed: int):
+    """G systems on the pattern of `name`: member 0 its own values and b;
+    members 1.. its values under seeded row and column signs (D1 A D2,
+    entries in A's range), with right-hand sides seeded in b's range.
+    Their minors are member 0's up to sign, so their pivots cancel where
+    member 0's do and the family replan around member 0's pivots serves
+    them all. (Members with independently drawn values cancel on member
+    0's pinned rows on uni10k, as ``diverging_member_checks`` counts on
+    the host, and each such member is solved alone from a new Analysis:
+    the reference's rule, held to the JAX driver in
+    tests/test_torch_batch.py. That check runs such members through K2
+    and K3 in one launch instead.)"""
+    import numpy as np
+
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    A, b = _load(slip, name)
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    n, nz = A.n, int(A.p[A.n])
+    rng = np.random.default_rng(seed)
+    cols = np.repeat(np.arange(n), np.diff(np.asarray(A.p[:n + 1],
+                                                      dtype=np.int64)))
+    rows = np.asarray(A.i[:nz], dtype=np.int64)
+    xv = [int(v) for v in A.x[:nz]]
+    col0 = _int_column(slip, b, n)
+    As, bs = [A], [b]
+    for g in range(1, G):
+        Ag = matrix_copy(A, Kind.CSC, Type.MPZ)
+        sr, sc = rng.choice([-1, 1], n), rng.choice([-1, 1], n)
+        sign = sr[rows] * sc[cols]
+        Ag.x[:nz] = [v * int(s) for v, s in zip(xv, sign)]
+        As.append(Ag)
+        bs.append(slip.SlipMatrix.from_dense(np.array(
+            [[int(v)] for v in rng.integers(min(col0), max(col0) + 1, n)],
+            dtype=object), slip.Type.MPZ))
+    return As, bs
+
+
+def family_path(slip, torch, name: str = "uni10k", seed: int = 16):
+    """A family of FAMILY_G systems on one pattern: one cold and one warm
+    ``factorize_solve_cuda_fused_many`` on one Analysis. Every member
+    passes check_solution; members 0 and 1 are held to the host oracle
+    too. Prints the plan the family took and the members solved alone.
+    Returns the lines, the launches and (members, Analysis, bs)."""
+    from slip_lu_tpu_torch.gpu import backslash_fused as bf
+    As, bs = _family(slip, name, FAMILY_G, seed)
+    opts = slip.Options()
+    ana = slip.analyze(As[0], opts)
+    hosts = [slip.backslash(As[g], bs[g], slip.Type.MPQ, opts,
+                            backend="host") for g in (0, 1)]
+    real, real_many = bf.factorize_solve_cuda_fused, bf.fused_solve_many
+    alone, rungs = [], []
+
+    def spy(A, *args, **kw):
+        alone.append(next(g for g, Ag in enumerate(As) if Ag is A))
+        return real(A, *args, **kw)
+
+    def spy_many(n, W8, Ws8, *args, segments=None):
+        rungs.append((W8, Ws8, segments))
+        return real_many(n, W8, Ws8, *args, segments=segments)
+
+    _zero_counts()
+    lines = []
+    bf.factorize_solve_cuda_fused = spy
+    bf.fused_solve_many = spy_many
+    try:
+        for label in ("cold", "warm"):
+            alone.clear()
+            rungs.clear()
+            if label == "cold":
+                os.environ["SLIP_FUSED_DEBUG"] = "1"
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                xs = bf.factorize_solve_cuda_fused_many(As, ana, bs, opts,
+                                                        device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                os.environ.pop("SLIP_FUSED_DEBUG", None)
+            t0 = time.perf_counter()
+            for g, (A, b, x) in enumerate(zip(As, bs, xs)):
+                slip.check_solution(A, x, b)
+            for g, xh in enumerate(hosts):
+                if not _same_x(xs[g], xh):
+                    _fail(f"family {label}: member {g} differs from the "
+                          "host oracle")
+            chk = time.perf_counter() - t0
+            plan = ("the transversal pivots" if ana.sparse_fixed_r is None
+                    else "the pinned rows of one member's oracle pivots "
+                    "(family replan)")
+            W8, Ws8, segs = rungs[-1]
+            lines.append(
+                f"family {label}: {FAMILY_G} systems on {name}'s pattern in "
+                f"one Analysis: {wall:.3f} s; plan: {plan}; {len(rungs)} "
+                f"family device runs, the last at W8={W8} Ws8={Ws8} "
+                f"segments {list(segs)}; members solved alone by the "
+                f"single-system driver: {sorted(alone)}; every member "
+                f"check_solution, members 0 and 1 = host oracle "
+                f"({chk:.1f} s)")
+    finally:
+        bf.factorize_solve_cuda_fused = real
+        bf.fused_solve_many = real_many
+    launches = _read_counts()
+    for k in (f"factor_stream[G={FAMILY_G}]", f"solve_stream[G={FAMILY_G}]"):
+        if launches[k] == 0:
+            _fail(f"family: the main path never launched {k}")
+    lines.append(f"  family launches (cold + warm) {launches}")
+    return lines, launches, (As, ana, bs, W8, Ws8)
+
+
+def pivot_exact_path(slip, torch, name: str = "tri1000"):
+    """Options(pivot=SMALLEST, pivot_exact=True) through cuda-fused and
+    through the sharded driver at world size 1: both exact, equal to the
+    host oracle under the same options, on the host scheme's rows."""
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.factorize import factorize
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    from slip_lu_tpu_torch.parallel import factorize_solve_cuda_fused_sharded
+    A, b = _load(slip, name)
+    opts = slip.Options(check=True, pivot=slip.Pivot.SMALLEST,
+                        pivot_exact=True)
+    x_host = slip.backslash(A, b, slip.Type.MPQ, opts, backend="host")
+    A2 = matrix_copy(A, Kind.CSC, Type.MPZ, opts)
+    rows = list(map(int, factorize(A2, slip.analyze(A2, opts),
+                                   opts).row_perm))
+    _zero_counts()
+    lines = []
+    for label in ("cuda-fused", "sharded p=1"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "cuda-fused":
+            x = slip.backslash(A, b, slip.Type.MPQ, opts,
+                               backend="cuda-fused", device="cuda")
+            ana_rows = None
+        else:
+            ana = slip.analyze(A2, opts)
+            x = factorize_solve_cuda_fused_sharded(A2, ana, b, None, opts,
+                                                   device="cuda")
+            ana_rows = list(map(int, ana.sparse_fixed_r))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = slip.last_stats()
+        if st.fallback or not _same_x(x, x_host):
+            _fail(f"pivot_exact {name} {label}: fallback {st.fallback} or "
+                  "the solution differs from the host oracle")
+        if ana_rows is not None and ana_rows != rows:
+            _fail(f"pivot_exact {name} {label}: pinned rows are not the "
+                  "host scheme's")
+        slip.check_solution(A, x, b)
+        lines.append(f"pivot_exact {name} (SMALLEST) {label}: {wall:.3f} s, "
+                     f"W8={st.W} Ws8={st.Ws} retries={st.retries}, exact = "
+                     "host oracle under the same options, check_solution")
+    launches = _read_counts()
+    lines.append(f"  pivot_exact launches {launches}")
+    return lines, launches
+
+
+def _interleaved(torch, ff, avals_g, es, W8, dev):
+    """The members' value tables, slot-interleaved (row slot*G + g)."""
+    stack = torch.stack([ff.val_tensor(av, es.init_pos, es.nnz, W8, dev)
+                         for av in avals_g])
+    return stack.transpose(0, 1).reshape(-1, W8).contiguous()
+
+
+# chunks of the family's streams on which K2 / K3 at G members are held to
+# their plain versions (timed whole besides)
+FAMILY_PREFIX = 25
+
+
+def member_stream_checks(slip, torch, fam):
+    """K2 and K3 at FAMILY_G members (one block each) against their plain
+    versions on a prefix of the family's streams, at the widths of the
+    family's last device run (one full-width segment), bit for bit; the
+    kernels timed on the whole streams."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.gpu import factor_fused as ff
+    from slip_lu_tpu_torch.gpu.backslash_fused import _tc_width
+    from slip_lu_tpu_torch.gpu.schedule import _permute_cols
+    As, ana, bs, W8, Ws8 = fam
+    G, n = len(As), As[0].n
+    _, (_, r, es, tensors) = ana.fused_many_sched_cache
+    WN, WNS, WI8 = ff._r8(2 * W8 + 2), ff._r8(W8 + Ws8 + 2), \
+        ff._r8(max(W8, Ws8) + 2)
+    st = tensors["cuda"]
+    q = np.asarray(ana.q, np.int64)
+    avals_g = []
+    for A in As:
+        Aq = _permute_cols(A, q)
+        avals_g.append([int(Aq.x[i]) for c in range(n)
+                        for i in range(int(Aq.p[c]), int(Aq.p[c + 1]))])
+    val = _interleaved(torch, ff, avals_g, es, W8, "cuda")
+    cols = [[int(v) for v in _int_column(slip, b, n)] for b in bs]
+    bcols = [[c[int(r[k])] for k in range(n)] for c in cols]
+    Wb = max(_tc_width(c, Ws8) for c in bcols)
+    X0 = ff.x_tensor(torch.from_numpy(np.stack(
+        [ff.ints_to_tc_rows(c, Wb) for c in bcols])).to("cuda"), n, Ws8)
+    nf, ns = st.fhm.shape[0], st.scnt.shape[0]
+    blocks = ff.factor_stream.blocks
+    whole_f, tables = _time_ms(torch, lambda: ff.factor_stream(
+        st, val, n, W8, WN, WI8, G=G), 1)
+    grid = ff.factor_stream.blocks - blocks
+    whole_s, (_, sflags) = _time_ms(torch, lambda: ff.solve_stream(
+        st, *tables[:4], X0, W8, Ws8, WNS, WI8, G=G), 1)
+    # member 0 alone on the same stream and widths: what G blocks cost
+    # beyond one
+    val0 = ff.val_tensor(avals_g[0], es.init_pos, es.nnz, W8, "cuda")
+    x0 = ff.x_tensor(X0[:n * G].view(n, G, Ws8)[:, 0], n, Ws8)
+    one_f, t1 = _time_ms(torch, lambda: ff.factor_stream(
+        st, val0, n, W8, WN, WI8), 1)
+    one_s, _ = _time_ms(torch, lambda: ff.solve_stream(
+        st, *t1[:4], x0, W8, Ws8, WNS, WI8), 1)
+    kf, ks = min(nf, FAMILY_PREFIX), min(ns, FAMILY_PREFIX)
+    fst, sst = _prefix(st, kf, ns), _prefix(st, nf, ks)
+    k_ms, fk = _time_ms(torch, lambda: ff.factor_stream(
+        fst, val, n, W8, WN, WI8, G=G), 3)
+    p_ms, fp = _time_ms(torch, lambda: ff.factor_stream_ref(
+        fst, val, n, W8, WN, WI8, G=G), 1)
+    ks_ms, sk = _time_ms(torch, lambda: ff.solve_stream(
+        sst, *tables[:4], X0, W8, Ws8, WNS, WI8, G=G), 3)
+    ps_ms, sp = _time_ms(torch, lambda: ff.solve_stream_ref(
+        sst, *tables[:4], X0, W8, Ws8, WNS, WI8, G=G), 1)
+    f_err, s_err = _diff(fk, fp), _diff(sk, sp)
+    if f_err or s_err or grid != G:
+        _fail(f"family kernels: differ from the plain versions (factor "
+              f"max |diff| {f_err}, solve {s_err}) or launched {grid} "
+              f"blocks, not {G}")
+    E8, n8 = val.shape[0], tables[1].shape[0]
+    fops, fbytes = _factor_bound(fst, E8, n8, W8, WI8, False)
+    sops, sbytes = _solve_bound(sst, E8, n8, W8, Ws8, WI8, X0.numel())
+    fb = _bound(G * fops, fbytes)
+    sb = _bound(G * sops, sbytes)
+    lines = [
+        f"family kernels ({G} members, a grid of {grid} blocks), W8={W8} "
+        f"Ws8={Ws8}: whole streams ({nf} factor, {ns} solve chunks) "
+        f"factor_stream {whole_f:.3f} ms, solve_stream {whole_s:.3f} ms "
+        f"(member 0 alone: {one_f:.3f} ms, {one_s:.3f} ms); "
+        f"on {kf} / {ks} chunks bit-equal to the plain versions: "
+        f"factor_stream {k_ms:.3f} ms vs plain {p_ms:.3f} ms, bound "
+        f"{fb[0]:.4f} ms ({fb[1]}); solve_stream {ks_ms:.3f} ms vs plain "
+        f"{ps_ms:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]}); per-member flags "
+        f"factor {tables[4][:2].tolist()} solve {sflags[:2].tolist()}"]
+    return lines, {f"factor_stream[G={G}]": (f_err, k_ms, p_ms, *fb),
+                   f"solve_stream[G={G}]": (s_err, ks_ms, ps_ms, *sb)}
+
+
+def _seeded_members(slip, A, b, G: int, seed: int):
+    """G systems on A's pattern: member 0 is (A, b); members 1.. carry
+    values drawn independently from A's distinct entries, and right-hand
+    sides drawn in b's range."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    n, nz = A.n, int(A.p[A.n])
+    entries = sorted({int(v) for v in A.x[:nz]})
+    col0 = _int_column(slip, b, n)
+    rng = np.random.default_rng(seed)
+    As, bs = [A], [b]
+    for _ in range(1, G):
+        Ag = matrix_copy(A, Kind.CSC, Type.MPZ)
+        Ag.x[:nz] = [entries[int(i)]
+                     for i in rng.integers(0, len(entries), nz)]
+        As.append(Ag)
+        bs.append(slip.SlipMatrix.from_dense(np.array(
+            [[int(v)] for v in rng.integers(min(col0), max(col0) + 1, n)],
+            dtype=object), slip.Type.MPZ))
+    return As, bs
+
+
+def diverging_member_checks(slip, torch, fam, seed: int = 17):
+    """K2 and K3 at FAMILY_G members whose values differ: member 0 is
+    uni10k, members 1.. a parametric family (``_seeded_members``) on the
+    family's stream and pinned rows. The host ``factorize`` on those rows
+    finds the step at which each member's pivot cancels exactly. One
+    launch runs all members: the whole factor stream, whose per-member
+    flags must diverge and, for every member without an overflow, say
+    sing exactly when the host saw a cancellation; and the first
+    FAMILY_PREFIX chunks of each stream, held bit for bit (tables, X,
+    the [8, G] flags) to the plain versions. Returns the lines and the
+    largest difference."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.errors import SlipSingularError
+    from slip_lu_tpu_torch.factorize import factorize
+    from slip_lu_tpu_torch.gpu import factor_fused as ff
+    from slip_lu_tpu_torch.gpu.backslash_fused import _tc_width
+    from slip_lu_tpu_torch.gpu.schedule import _permute_cols
+    As, ana, bs, W8, Ws8 = fam
+    G, n = len(As), As[0].n
+    _, (_, r, es, tensors) = ana.fused_many_sched_cache
+    Ad, bd = _seeded_members(slip, As[0], bs[0], G, seed)
+    opts = slip.Options()
+    t0 = time.perf_counter()
+    cancel = [None]
+    for A in Ad[1:]:
+        try:
+            factorize(A, ana, opts, fixed_r=r)
+            cancel.append(None)
+        except SlipSingularError as e:
+            cancel.append(e.k)
+    host_s = time.perf_counter() - t0
+    WN, WNS, WI8 = ff._r8(2 * W8 + 2), ff._r8(W8 + Ws8 + 2), \
+        ff._r8(max(W8, Ws8) + 2)
+    st = tensors["cuda"]
+    q = np.asarray(ana.q, np.int64)
+    avals_g = []
+    for A in Ad:
+        Aq = _permute_cols(A, q)
+        avals_g.append([int(Aq.x[i]) for c in range(n)
+                        for i in range(int(Aq.p[c]), int(Aq.p[c + 1]))])
+    val = _interleaved(torch, ff, avals_g, es, W8, "cuda")
+    bcols = [[c[int(r[k])] for k in range(n)]
+             for c in (_int_column(slip, b, n) for b in bd)]
+    Wb = max(_tc_width(c, Ws8) for c in bcols)
+    X0 = ff.x_tensor(torch.from_numpy(np.stack(
+        [ff.ints_to_tc_rows(c, Wb) for c in bcols])).to("cuda"), n, Ws8)
+    nf, ns = st.fhm.shape[0], st.scnt.shape[0]
+    tables = ff.factor_stream(st, val, n, W8, WN, WI8, G=G)
+    whole = tables[4].view(8, G)[:2].T.tolist()      # (sing, ovf) a member
+    kf, ks = min(nf, FAMILY_PREFIX), min(ns, FAMILY_PREFIX)
+    fst, sst = _prefix(st, kf, ns), _prefix(st, nf, ks)
+    fk = ff.factor_stream(fst, val, n, W8, WN, WI8, G=G)
+    fp = ff.factor_stream_ref(fst, val, n, W8, WN, WI8, G=G)
+    sk = ff.solve_stream(sst, *tables[:4], X0, W8, Ws8, WNS, WI8, G=G)
+    sp = ff.solve_stream_ref(sst, *tables[:4], X0, W8, Ws8, WNS, WI8, G=G)
+    err = max(_diff(fk, fp), _diff(sk, sp))
+    if err:
+        _fail(f"diverging members: the kernels differ from the plain "
+              f"versions (max |diff| {err})")
+    if len({tuple(f) for f in whole}) < 2:
+        _fail(f"diverging members: every member flagged alike {whole}")
+    wrong = [g for g, ((sing, ovf), k) in enumerate(zip(whole, cancel))
+             if not ovf and bool(sing) != (k is not None)]
+    if wrong:
+        _fail(f"diverging members {wrong}: the sing flag disagrees with the "
+              f"host factorize on the pinned rows ({whole}, {cancel})")
+    hit = [(g, k) for g, k in enumerate(cancel) if k is not None]
+    return [
+        f"diverging family members ({G} in one launch, members 1-{G - 1} "
+        f"values drawn from uni10k's entries, seed {seed}), W8={W8} "
+        f"Ws8={Ws8}: on the family's pinned rows the host factorize "
+        f"({host_s:.1f} s) finds {len(hit)} of {G - 1} cancelling, "
+        f"(member, step) {hit}; whole factor stream (sing, ovf) a member "
+        f"{whole}; on {kf} / {ks} chunks K2 and K3 bit-equal to the plain "
+        f"versions, prefix flags factor {fk[4].view(8, G)[:2].tolist()} "
+        f"solve {sk[1].view(8, G)[:2].tolist()}"], err
+
+
+def lane_solve_checks(slip, torch, case: Case, seed: int = 8):
+    """K3 with LANES_R right-hand sides (X per lane, the tables shared)
+    against its plain version on uni10k's solve stream at the widths the
+    lanes settled on (one full-width segment): timed whole, held to the
+    plain version on its first SETTLED_PREFIX chunks."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.gpu import factor_fused as ff
+    from slip_lu_tpu_torch.gpu.backslash_fused import _tc_width
+    ana, A2 = case.ana, case.A2
+    _, (_, r, es, avals) = ana.fused_cache
+    W, Ws, _ = case.lanes
+    n = A2.n
+    nd = n if es.ndet is None else es.ndet
+    st = ff.stream_tensors(es, "cuda")
+    W8, Ws8 = ff._r8(W), ff._r8(max(Ws, W + 1))
+    WN, WNS, WI8 = ff._r8(2 * W8 + 2), ff._r8(W8 + Ws8 + 2), \
+        ff._r8(max(W8, Ws8) + 2)
+    val = ff.val_tensor(avals, es.init_pos, es.nnz, W8, "cuda",
+                        es.extra_pos, es.extra_vals)
+    tables = ff.factor_stream(st, val, nd, W8, WN, WI8)[:4]
+    X0 = _lane_x(slip, torch, ff, case.b, r, n, LANES_R, seed, Ws8, es.nxx)
+    ns = st.scnt.shape[0]
+    whole, (_, wflags) = _time_ms(torch, lambda: ff.solve_stream(
+        st, *tables, X0, W8, Ws8, WNS, WI8, G=LANES_R, a_g=False,
+        tab_g=False), 3)
+    ks = min(ns, SETTLED_PREFIX)
+    sst = _prefix(st, st.fhm.shape[0], ks)
+    k_ms, sk = _time_ms(torch, lambda: ff.solve_stream(
+        sst, *tables, X0, W8, Ws8, WNS, WI8, G=LANES_R, a_g=False,
+        tab_g=False), 3)
+    p_ms, sp = _time_ms(torch, lambda: ff.solve_stream_ref(
+        sst, *tables, X0, W8, Ws8, WNS, WI8, G=LANES_R, a_g=False,
+        tab_g=False), 1)
+    err = _diff(sk, sp)
+    if err or wflags.any():
+        _fail(f"solve_stream R={LANES_R}: differs from the plain version "
+              f"(max |diff| {err}) or flagged {wflags.tolist()}")
+    ops, nbytes = _solve_bound(sst, val.shape[0], tables[0].shape[0], W8,
+                               Ws8, WI8, X0.numel())
+    b = _bound(LANES_R * ops, nbytes)
+    return [f"solve_stream with {LANES_R} right-hand sides ({case.label}, "
+            f"W8={W8} Ws8={Ws8}, tables shared): whole stream ({ns} chunks) "
+            f"{whole:.3f} ms; on {ks} chunks bit-equal, {k_ms:.3f} ms vs "
+            f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})"], \
+        (err, k_ms, p_ms, *b)
+
+
+def _lane_x(slip, torch, ff, b, r, n, R, seed, Ws8, nxx):
+    """X of R lanes: b's column and R - 1 seeded ones (as _with_columns),
+    permuted by r, at Ws8 limbs."""
+    import numpy as np
+
+    from slip_lu_tpu_torch.convert import matrix_copy
+    from slip_lu_tpu_torch.gpu.backslash_fused import _tc_width
+    from slip_lu_tpu_torch.matrix import Kind, Type
+    B = matrix_copy(_with_columns(slip, b, n, R - 1, seed), Kind.DENSE,
+                    Type.MPZ)
+    cols = [[int(B.x[int(r[k]), c]) for k in range(n)] for c in range(R)]
+    Wb = max(_tc_width(c, Ws8) for c in cols)
+    return ff.x_tensor(torch.from_numpy(np.stack(
+        [ff.ints_to_tc_rows(c, Wb) for c in cols])).to("cuda"), n, Ws8, nxx)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1352,8 +1925,23 @@ def main() -> int:
             print(line, flush=True)
         for k, v in got.items():
             launches[k] += v
+    # right-hand-side lanes on the Analyses of uni10k and of uni100k in its
+    # default ordering, then a family of FAMILY_G systems on uni10k's
+    # pattern
+    for case in (cases[0], cases[2]):
+        lines, got = rhs_lanes_path(slip, torch, case)
+        for line in lines:
+            print(line, flush=True)
+        for k, v in got.items():
+            launches[k] += v
+    lines, got, fam = family_path(slip, torch)
+    for line in lines:
+        print(line, flush=True)
+    for k, v in got.items():
+        launches[k] += v
     P = slip.Pivot
-    dense = [DenseCase("grid16", "grid16", {}, warm=1)]
+    # grid16's warm solve is timed by the busy-share phase (profiler on)
+    dense = [DenseCase("grid16", "grid16", {})]
     dense += [DenseCase(f"tri200 {p.name}", "tri200", {"pivot": p},
                         factor_check=p in (P.SMALLEST, P.TOL_LARGEST))
               for p in P]
@@ -1391,6 +1979,11 @@ def main() -> int:
             print(line, flush=True)
         for k, v in got.items():
             launches[k] += v
+    lines, got = pivot_exact_path(slip, torch)
+    for line in lines:
+        print(line, flush=True)
+    for k, v in got.items():
+        launches[k] += v
     print(f"launches on the main path (all cases): {launches}")
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -1403,12 +1996,20 @@ def main() -> int:
     for line in shard_busy_share(torch, shard[0]):
         print(line, flush=True)
     klines, rep = stream_checks(slip, torch, cases[0])
-    rlines, rep["relift_gt"] = boundary_checks(torch, cases[2])
+    rlines, rep["relift_gt"] = boundary_checks(slip, torch, cases[2])
     glines = grouped_segment_check(slip, torch)
     mlines, rep["mul_shared"] = k5_checks(torch)
     slines, srep = shard_kernel_checks(slip, torch, shard[0])
     rep.update(srep)
-    for line in klines + rlines + glines + mlines + slines:
+    flines, frep = member_stream_checks(slip, torch, fam)
+    dlines, derr = diverging_member_checks(slip, torch, fam)
+    for name in frep:
+        frep[name] = (max(frep[name][0], derr), *frep[name][1:])
+    rep.update(frep)
+    llines, rep[f"solve_stream[R={LANES_R}]"] = lane_solve_checks(
+        slip, torch, cases[0])
+    for line in (klines + rlines + glines + mlines + slines + flines + dlines
+                 + llines):
         print(line)
     dist.destroy_process_group()
     store.cleanup()
@@ -1427,7 +2028,13 @@ def main() -> int:
             ("ab_chunk", "slip_lu_tpu_torch/csrc/fused_shard.cu",
              f"{shard_ref}:53"),
             ("c_chunk", "slip_lu_tpu_torch/csrc/fused_shard.cu",
-             f"{shard_ref}:157")):
+             f"{shard_ref}:157"),
+            (f"factor_stream[G={FAMILY_G}]",
+             "slip_lu_tpu_torch/csrc/fused.cu", f"{ref}:735"),
+            (f"solve_stream[G={FAMILY_G}]",
+             "slip_lu_tpu_torch/csrc/fused.cu", f"{ref}:1116"),
+            (f"solve_stream[R={LANES_R}]",
+             "slip_lu_tpu_torch/csrc/fused.cu", f"{ref}:1116")):
         err, ms, plain_ms, bound_ms, bound_by = rep[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

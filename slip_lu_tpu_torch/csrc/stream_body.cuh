@@ -18,6 +18,15 @@
 // pass-1 events, pass-2 events, flag bits; bit 256: a head needs a history
 // fix); events are field-major [5, C] (t, m, d, a, b). Flags are int32[8]:
 // 0 sing, 1 any overflow, 2 heads, 3 pass 1, 4 pass 2.
+//
+// Member rows (K2/K3 with G members, one block each): a table with m
+// member rows per logical row (m = G, or 1 when the members share it)
+// keeps logical row r of member g at row r*m + g. The kernel offsets the
+// table's base by its member's row, so the body reads logical row r at
+// r * m rows from there (Dims::mT, mV, mS). The body is a template on
+// MEMB: one-member launches (K2/K3 at G = 1, K6/K7) take MEMB = false,
+// where the strides are the widths and the member counts are never read,
+// so their code is that of a single system.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,7 +44,17 @@ struct Dims {
   int WV;    // verification modulus
   int WI8;   // GT width
   int L;     // per-warp buffer length (>= every width above)
+  // member rows per logical row (see above): the target and b-operand
+  // table (val in the factor stream, X in the solve), the value table as
+  // the a-operand source and the heads' table, and SMT / GT / TZ
+  int mT = 1, mV = 1, mS = 1;
 };
+
+// Offset of logical row r in a table of m member rows of W limbs.
+template <bool MEMB>
+static __device__ __forceinline__ size_t row_at(int r, int m, int W) {
+  return MEMB ? (size_t)r * m * W : (size_t)r * W;
+}
 
 // 16 warps: the factor kernel needs ~120 registers a thread, and the
 // SM's 65,536 registers hold 512 such threads.
@@ -58,6 +77,7 @@ static __device__ __forceinline__ Warp warp_scratch(char* smem, int L) {
 
 // One pass event: q = (T*M - A*B) / rho_d at width Wt -> out[0, Wt).
 // Returns the event's overflow flag.
+template <bool MEMB = false>
 static __device__ bool pass_event(const int* ev, int C, int e, const int* tgt,
                                   const int* asrc, const int* bsrc,
                                   bool has_ab, const int* SMT, const int* GT,
@@ -68,19 +88,19 @@ static __device__ bool pass_event(const int* ev, int C, int e, const int* tgt,
   int *T = w.b[0], *M = w.b[1], *A = w.b[2], *B = w.b[3], *num = w.b[4];
   int *sh = w.b[5], *G = w.b[6], *q = w.b[7], *V = w.b[8], *v = w.b[9];
   const int Wt = d.Wt, W8 = d.W8;
-  load_ext(T, tgt + (size_t)t * Wt, Wt, Wt);
+  load_ext(T, tgt + row_at<MEMB>(t, d.mT, Wt), Wt, Wt);
   int mw = W8;
   if (m == 0) {                       // SMT[0] = 1
     if (lane_id() == 0) M[0] = 1;
     __syncwarp();
     mw = 1;
   } else {
-    load_ext(M, SMT + (size_t)m * W8, W8, W8);
+    load_ext(M, SMT + row_at<MEMB>(m, d.mS, W8), W8, W8);
   }
   columns<true, true>(w.cb, T, Wt, M, mw, d.WN, 0);
   if (has_ab) {
-    load_ext(A, asrc + (size_t)a * W8, W8, W8);
-    load_ext(B, bsrc + (size_t)b * Wt, Wt, Wt);
+    load_ext(A, asrc + row_at<MEMB>(a, d.mV, W8), W8, W8);
+    load_ext(B, bsrc + row_at<MEMB>(b, d.mT, Wt), Wt, Wt);
     columns<true, true>(w.cb, A, W8, B, Wt, d.WN, -1);
   }
   carry_out(num, w.cb, d.WN);
@@ -89,11 +109,11 @@ static __device__ bool pass_event(const int* ev, int C, int e, const int* tgt,
     load_ext(q, num, d.WN, d.WQ);
     bad = !equal_ext(q, d.WQ, num, d.WN, d.WV);
   } else {
-    shr_bits(sh, num, d.WN, TZ[(size_t)dv * 8], d.WQ);
-    load_ext(G, GT + (size_t)dv * d.WI8, d.WQ, d.WQ);
+    shr_bits(sh, num, d.WN, TZ[row_at<MEMB>(dv, d.mS, 8)], d.WQ);
+    load_ext(G, GT + row_at<MEMB>(dv, d.mS, d.WI8), d.WQ, d.WQ);
     columns<false, false>(w.cb, sh, d.WQ, G, d.WQ, d.WQ, 0);
     carry_out(q, w.cb, d.WQ);
-    load_ext(V, SMT + (size_t)dv * W8, W8, W8);
+    load_ext(V, SMT + row_at<MEMB>(dv, d.mS, W8), W8, W8);
     columns<true, true>(w.cb, q, d.WQ, V, W8, d.WV, 0);
     carry_out(v, w.cb, d.WV);
     bad = !equal_ext(v, d.WV, num, d.WN, d.WV);
@@ -105,6 +125,7 @@ static __device__ bool pass_event(const int* ev, int C, int e, const int* tgt,
 }
 
 // A pass: every event into obuf, a barrier, then the scatter.
+template <bool MEMB = false>
 static __device__ void run_pass(const int* ev, int C, int cnt, int* tgt,
                                 const int* asrc, const int* bsrc, bool has_ab,
                                 const int* SMT, const int* GT, const int* TZ,
@@ -113,8 +134,8 @@ static __device__ void run_pass(const int* ev, int C, int cnt, int* tgt,
   if (cnt == 0) return;               // uniform across the block
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
   for (int e = warp; e < cnt; e += nw) {
-    bool ovf = pass_event(ev, C, e, tgt, asrc, bsrc, has_ab, SMT, GT, TZ, d,
-                          w, obuf + (size_t)e * d.Wt);
+    bool ovf = pass_event<MEMB>(ev, C, e, tgt, asrc, bsrc, has_ab, SMT, GT,
+                                TZ, d, w, obuf + (size_t)e * d.Wt);
     if (ovf && lane_id() == 0) {
       atomicOr(&s_flags[1], 1);
       atomicOr(&s_flags[flag_slot], 1);
@@ -123,7 +144,7 @@ static __device__ void run_pass(const int* ev, int C, int cnt, int* tgt,
   __syncthreads();
   for (int i = threadIdx.x; i < cnt * d.Wt; i += blockDim.x) {
     const int e = i / d.Wt;
-    tgt[(size_t)ev[e] * d.Wt + (i - e * d.Wt)] = obuf[i];
+    tgt[row_at<MEMB>(ev[e], d.mT, d.Wt) + (i - e * d.Wt)] = obuf[i];
   }
   __syncthreads();
 }
@@ -131,6 +152,7 @@ static __device__ void run_pass(const int* ev, int C, int cnt, int* tgt,
 // The chunk's pivot heads, one after another (warp 0). diag: nullptr to
 // read head t's diagonal from val[slot], else from row t of diag
 // ([H, W8]: the sharded path's all-reduced diagonals).
+template <bool MEMB = false>
 static __device__ void run_heads(const int* hm, const int* diag, int* val,
                                  int* SMT, const int* GT, const int* TZ,
                                  const Dims& d, Warp& w, int* s_flags) {
@@ -145,24 +167,26 @@ static __device__ void run_heads(const int* hm, const int* diag, int* val,
     if (k < 0) continue;
     const int slot = hm[H + t], dv = hm[2 * H + t];
     const bool live = t < nh;
-    load_ext(X, diag ? diag + (size_t)t * W8 : val + (size_t)slot * W8, W8,
-             W8);
+    load_ext(X,
+             diag ? diag + (size_t)t * W8
+                  : val + row_at<MEMB>(slot, d.mV, W8),
+             W8, W8);
     bool bad = false;
     if (anyfix && dv != k) {
       // history fix: rho = x * rho_{k-1} / rho_{dv-1}; a chain link takes
       // rho_{k-1} from the head just before it in this chunk
       const int* mult = Rp;
       if (!(t > 0 && hm[t - 1] == k - 1)) {
-        load_ext(Mu, SMT + (size_t)k * W8, W8, W8);
+        load_ext(Mu, SMT + row_at<MEMB>(k, d.mS, W8), W8, W8);
         mult = Mu;
       }
       columns<true, true>(w.cb, X, W8, mult, W8, d.WN, 0);
       carry_out(num, w.cb, d.WN);
-      shr_bits(sh, num, d.WN, TZ[(size_t)dv * 8], d.WQ);
-      load_ext(G, GT + (size_t)dv * d.WI8, d.WQ, d.WQ);
+      shr_bits(sh, num, d.WN, TZ[row_at<MEMB>(dv, d.mS, 8)], d.WQ);
+      load_ext(G, GT + row_at<MEMB>(dv, d.mS, d.WI8), d.WQ, d.WQ);
       columns<false, false>(w.cb, sh, d.WQ, G, d.WQ, d.WQ, 0);
       carry_out(R, w.cb, d.WQ);
-      load_ext(V, SMT + (size_t)dv * W8, W8, W8);
+      load_ext(V, SMT + row_at<MEMB>(dv, d.mS, W8), W8, W8);
       columns<true, true>(w.cb, R, d.WQ, V, W8, d.WV, 0);
       carry_out(v, w.cb, d.WV);
       bad = !equal_ext(v, d.WV, num, d.WN, d.WV);
@@ -181,8 +205,8 @@ static __device__ void run_heads(const int* hm, const int* diag, int* val,
     // a zero pivot is flagged and stored as 1
     for (int i = lane_id(); i < W8; i += 32) {
       const int r = zer ? (i == 0) : R[i];
-      SMT[(size_t)(k + 1) * W8 + i] = r;
-      val[(size_t)slot * W8 + i] = r;
+      SMT[row_at<MEMB>(k + 1, d.mS, W8) + i] = r;
+      val[row_at<MEMB>(slot, d.mV, W8) + i] = r;
     }
     __syncwarp();
     int* tmp = R;
@@ -193,31 +217,35 @@ static __device__ void run_heads(const int* hm, const int* diag, int* val,
 
 // Hensel lift of head t's new pivot: GT[k+1] = odd(rho)^-1 mod 2^(16*WI8),
 // TZ[k+1] = its trailing zero bits (one warp).
+template <bool MEMB = false>
 static __device__ void run_lift(const int* hm, int t, const int* SMT, int* GT,
                                 int* TZ, const Dims& d, Warp& w) {
   const int k = hm[t];
   if (k < 0 || t >= hm[3 * d.H]) return;
   int *rho = w.b[0], *odd = w.b[1], *x = w.b[2];
-  load_ext(rho, SMT + (size_t)(k + 1) * d.W8, d.W8, d.WI8);
+  load_ext(rho, SMT + row_at<MEMB>(k + 1, d.mS, d.W8), d.W8, d.WI8);
   const int tz = trailing_zero_bits(rho, d.W8);
   shr_bits(odd, rho, d.WI8, tz, d.WI8);
   inverse_mod(x, odd, d.WI8, w.cb, w.b[3], w.b[4]);
   for (int i = lane_id(); i < d.WI8; i += 32)
-    GT[(size_t)(k + 1) * d.WI8 + i] = x[i];
-  if (lane_id() < 8) TZ[(size_t)(k + 1) * 8 + lane_id()] = tz;
+    GT[row_at<MEMB>(k + 1, d.mS, d.WI8) + i] = x[i];
+  if (lane_id() < 8) TZ[row_at<MEMB>(k + 1, d.mS, 8) + lane_id()] = tz;
   __syncwarp();
 }
 
 // A chunk's heads then the lift of its new pivots (every warp of the
 // block calls it; barriers between the phases).
+template <bool MEMB = false>
 static __device__ void run_heads_and_lift(const int* hm, const int* diag,
                                           int* val, int* SMT, int* GT,
                                           int* TZ, const Dims& d, Warp& w,
                                           int* s_flags) {
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
-  if (warp == 0) run_heads(hm, diag, val, SMT, GT, TZ, d, w, s_flags);
+  if (warp == 0)
+    run_heads<MEMB>(hm, diag, val, SMT, GT, TZ, d, w, s_flags);
   __syncthreads();
-  for (int t = warp; t < d.H; t += nw) run_lift(hm, t, SMT, GT, TZ, d, w);
+  for (int t = warp; t < d.H; t += nw)
+    run_lift<MEMB>(hm, t, SMT, GT, TZ, d, w);
   __syncthreads();
 }
 

@@ -32,11 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # hmeta ev1 ev2 val SMT GT TZ flags obuf | nc H C1 C2 W8 WN WQ WV WI8
-    # L nwarps | stream
-    "slip_factor_stream": [_P] * 9 + [_I] * 11 + [_P],
+    # L nwarps G | stream
+    "slip_factor_stream": [_P] * 9 + [_I] * 12 + [_P],
     # cnts ev1 ev2 val SMT GT TZ X flags obuf | nc C1 C2 W8 Ws8 WNS WQ WV
-    # WI8 L nwarps | stream
-    "slip_solve_stream": [_P] * 10 + [_I] * 11 + [_P],
+    # WI8 L nwarps G a_g tab_g | stream
+    "slip_solve_stream": [_P] * 10 + [_I] * 14 + [_P],
     # SMT GT_old TZ GT_new | rows smt_stride W8 WIo WIn steps | stream
     "slip_relift_gt": [_P] * 4 + [_I] * 6 + [_P],
     # a s out | B La Ls D | stream

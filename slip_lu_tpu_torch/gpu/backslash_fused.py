@@ -1,7 +1,8 @@
 """Host glue for the fused exact solve on a CUDA device.
 
-Port of ``slip_lu_tpu/tpu/backslash_fused.py:factorize_solve_tpu_fused``
-for one system (G = 1), taking the reference's decisions:
+Port of ``slip_lu_tpu/tpu/backslash_fused.py``: ``factorize_solve_tpu_fused``
+(one system) and ``factorize_solve_tpu_fused_many`` (a family of systems
+that share one sparsity pattern), taking the reference's decisions:
 
   1. ordering q + transversal r, symbolic elimination, uniform-event
      chunk streams (host, numpy); where the native forest is a chain, a
@@ -13,26 +14,47 @@ for one system (G = 1), taking the reference's decisions:
   3. A's values packed as two's-complement limb rows at the first
      segment's width, cached per (stream, width, device);
   4. ``fused_solve_all``: the factor stream segment by segment (tables
-     widened, GT re-lifted by K4 between segments) and each right-hand
-     side's solve stream, one flat int32 vector back;
+     widened, GT re-lifted by K4 between segments) and the solve stream,
+     several right-hand sides as the lanes of one run, one flat int32
+     vector back; a family runs every chunk on all its members
+     (``fused_solve_many``, one block a member on the card);
   5. the per-segment widen-and-retry, the host pin-check, a replan
-     around the oracle's pivots on exact cancellation, the decode to
-     rationals.
+     around the oracle's pivots on exact cancellation (for a family: of
+     the whole family around one member's pivots, then a per-member
+     fallback), the decode to rationals.
+
+``Options(pivot_exact=True)`` pins the rows of the reference pivot search
+(``_pin_scheme_rows``: one host factorization, cached per scheme on the
+Analysis), as the reference does.
 
 The environment switches of the reference keep their names and
 defaults: ``SLIP_FUSED_SEGMENTS`` ("0": one full-width segment),
 ``SLIP_FUSED_SUBTREE`` ("0": never grouped, "force": adopt any
-decomposition), ``SLIP_DISSECT_NMAX`` (largest n for a dissection) and
-``SLIP_FUSED_DEBUG`` (print each rung's widths, segments and flags).
+decomposition), ``SLIP_DISSECT_NMAX`` (largest n for a dissection),
+``SLIP_FUSED_GMAX`` (members a family group) and ``SLIP_FUSED_DEBUG``
+(print each rung's widths, segments and flags).
 
-Left for later work, as the reference allows (each is an optimization or
-a TPU memory artifact, sound either way): right-hand-side lanes and
-member-lane batching (G > 1, ``fused_solve_many``), packed tables and
-HBM value tables, and ``pivot_exact`` pinning (it raises). The last
-resort after both plans flag a singular pivot is the reference's: on the
-CPU, the dense path (``backslash_cuda``) up to n = ``DENSE_NMAX`` and the
-host oracle above; on a device that can only be a kernel fault, and it
-raises.
+Two decisions differ from the reference on purpose, both TPU memory or
+layout artifacts:
+
+  * lane count: the reference pads members and right-hand-side lanes to
+    a multiple of 8 on TPU hardware (``lane_group``) and not in
+    interpret mode; the port runs the exact count (one block a member
+    needs no alignment), so its flat vector is the interpret-mode
+    reference's;
+  * memory rule: the reference takes right-hand-side lanes only while
+    the value table fits VMEM, and solves a family one member at a time
+    when its G tables would exceed 40 MB of VMEM (``val_table_in_hbm``).
+    The port has one device memory: right-hand-side lanes whenever
+    nrhs > 1, and a family falls back per member only when its G member
+    tables exceed ``DEVICE_BUDGET``. Wherever the reference keeps its
+    tables in VMEM, which covers every CPU test size, the two agree.
+
+Packed tables and HBM value tables are TPU memory layouts and are not
+ported. The last resort after both plans flag a singular pivot is the
+reference's: on the CPU, the dense path (``backslash_cuda``) up to n =
+``DENSE_NMAX`` and the host oracle above; on a device that can only be a
+kernel fault, and it raises.
 """
 
 from __future__ import annotations
@@ -54,8 +76,9 @@ from ..options import Options
 from ..stats import SolveStats, phase_timer, record
 from .bounds import (_input_width, factor_width, hadamard_bits,
                      solve_width)
-from .factor_fused import (_r8, fused_solve_all, ints_to_tc_rows,
-                           stream_tensors, tc_rows_to_ints, val_tensor)
+from .factor_fused import (_r8, fused_solve_all, fused_solve_many,
+                           ints_to_tc_rows, stream_tensors,
+                           tc_rows_to_ints, val_tensor)
 from .schedule import _permute_cols
 from .schedule_native import build_schedule_best
 from .schedule_stream import build_event_stream
@@ -172,6 +195,11 @@ C1, C2 = 32, 128
 # The last resort's dense cap: its working set is O(n^2 * W), so larger
 # systems go to the host oracle (the reference's n <= 256).
 DENSE_NMAX = 256
+
+# Device memory the tables of one run may take: a sharded rank's value
+# table (grouped-stream adoption, parallel/driver_fused.py) and the G
+# member tables of a family group (else its members run one at a time).
+DEVICE_BUDGET = 2 * 1024 ** 3
 
 
 def _device(device) -> torch.device:
@@ -312,6 +340,30 @@ def _width_cost(es, West: int, n: int) -> float:
     return c
 
 
+def _pin_scheme_rows(A: SlipMatrix, analysis: Analysis,
+                     options: Options) -> None:
+    """``options.pivot`` honoured on the fused paths (pivot_exact=True):
+    run the reference pivot search once on the host (the slip_get_pivot.c
+    dispatch inside ``factorize``) and pin its row sequence into the
+    schedule. Cached per (pivot, tol) on the Analysis; the host
+    factorization's exact limb width seeds the ladder, so the device pass
+    runs once at the right width. Raises SlipSingularError for singular
+    input (host semantics)."""
+    tag = (int(options.pivot), float(options.tol))
+    if (getattr(analysis, "pivot_pin_tag", None) == tag
+            and analysis.sparse_fixed_r is not None):
+        return
+    from ..factorize import factorize
+    F = factorize(A, analysis, options)     # raises if singular
+    fixed_r = np.asarray(F.row_perm, dtype=np.int64)
+    analysis.sparse_fixed_r = fixed_r
+    analysis.pivot_pin_tag = tag
+    Wx = _tc_width((v for col in (F.Lcols + F.Ucols)
+                    for _, v in col), 1 << 30) + 1
+    analysis.fused_pin_check = (fixed_r.tobytes(), Wx)
+    analysis.fused_sched_only_cache = None
+
+
 def factorize_solve_cuda_fused(A: SlipMatrix, analysis: Analysis,
                                b: SlipMatrix,
                                options: Optional[Options] = None,
@@ -331,11 +383,6 @@ def factorize_solve_cuda_fused(A: SlipMatrix, analysis: Analysis,
     dev = _device(device)
     if A.kind != Kind.CSC or A.type != Type.MPZ:
         raise SlipIncorrectInputError("fused path requires CSC x MPZ input")
-    if options.pivot_exact:
-        raise SlipIncorrectInputError(
-            "pivot_exact is not supported on the cuda-fused backend yet "
-            "(pinned pivot schemes are queued in ROADMAP.md); use "
-            "backend='host'")
     n = A.n
     if b.m != n:
         raise SlipIncorrectInputError(f"b has {b.m} rows, matrix has {n}")
@@ -344,6 +391,8 @@ def factorize_solve_cuda_fused(A: SlipMatrix, analysis: Analysis,
     if n == 0:
         return SlipMatrix.allocate(Kind.DENSE, Type.MPQ, 0, nrhs)
     st = SolveStats(backend="cuda-fused", n=n, nnz=int(A.p[n]), nrhs=nrhs)
+    if options.pivot_exact:
+        _pin_scheme_rows(A, analysis, options)
     q = np.asarray(analysis.q, dtype=np.int64)
     fixed_r = analysis.sparse_fixed_r   # cached repair from earlier solves
 
@@ -503,15 +552,15 @@ def factorize_solve_cuda_fused(A: SlipMatrix, analysis: Analysis,
             o = 2 * S
             det_row = flat[o:o + W8][None, :]
             o += W8
-            X_h = []
+            # all right-hand sides ran as the lanes of one solve run
+            # (fused_solve_all): per solve segment [ssing*nrhs,
+            # sovf*nrhs], then X rows j*nrhs + c
             sseg_ovf = [False] * Ss
-            for c in range(nrhs):
-                for s in range(Ss):
-                    if flat[o + 1]:
-                        sseg_ovf[s] = True
-                    o += 2
-                X_h.append(flat[o:o + n * Ws8].reshape(n, Ws8))
-                o += n * Ws8
+            for s in range(Ss):
+                sseg_ovf[s] = bool(flat[o + nrhs:o + 2 * nrhs].any())
+                o += 2 * nrhs
+            blk = flat[o:o + n * nrhs * Ws8].reshape(n, nrhs, Ws8)
+            X_h = [blk[:, c] for c in range(nrhs)]
             sing = any(seg_sing)
             f_ovf = any(seg_ovf)
             s_ovf = any(sseg_ovf)
@@ -715,3 +764,327 @@ def _adopt_grouped(A, analysis, options, es, sched, r, fixed_r, skey, key,
     analysis.fused_pin_check = (skey, Wx)
     analysis.fused_sched_only_cache = (skey, (sched, r))
     return es_g, (key[0], key[1], key[2], skey), cand
+
+
+# ---------------------------------------------------------------------------
+# families: pattern-sharing systems solved together
+# ---------------------------------------------------------------------------
+
+def family_fits(E: int, n: int, G: int, W8: int, WI8: int) -> bool:
+    """Whether a family group's G member tables (value table, SMT, GT, TZ
+    at value width W8 and GT width WI8) fit ``DEVICE_BUDGET``: the port's
+    rule in place of the reference's VMEM budget."""
+    nbytes = 4 * G * (_r8(E + 1) * W8 + (n + 2) * (W8 + WI8 + 8))
+    return nbytes <= DEVICE_BUDGET
+
+
+def factorize_solve_cuda_fused_many(As, analysis: Analysis, bs,
+                                    options: Optional[Options] = None,
+                                    device="cuda", heads_per_chunk: int = 8,
+                                    pass1_events: int = 16,
+                                    pass2_events: int = 32):
+    """Exact solves of systems that share one sparsity pattern (the
+    reference's ``factorize_solve_tpu_fused_many``): the G matrices share
+    one schedule and one event stream, and every member runs each chunk
+    (``fused_solve_many``; on the card one block a member). Large
+    families run in groups of at most ``SLIP_FUSED_GMAX`` members (the
+    reference's budget: 16 at 8 heads and 16 / 32 events a chunk).
+
+    A member whose scheduled pivot cancels exactly sends the whole family
+    to a replan around that member's oracle pivots; a member that still
+    cancels on the pinned rows (or is singular) is solved alone by the
+    single-system driver. A group whose member tables exceed
+    ``DEVICE_BUDGET`` is solved one member at a time. Returns a list of
+    dense MPQ solutions, one a system. device: "cuda" runs the kernels;
+    "cpu" their plain versions."""
+    options = options or Options()
+    options.validate()
+    dev = _device(device)
+    if not As or len(As) != len(bs):
+        raise SlipIncorrectInputError("As and bs must be equal-length, "
+                                      "nonempty lists")
+    A0 = As[0]
+    n = A0.n
+    for A in As:
+        if A.kind != Kind.CSC or A.type != Type.MPZ:
+            raise SlipIncorrectInputError(
+                "fused path requires CSC x MPZ input")
+    for A in As[1:]:
+        if A.n != n or not np.array_equal(A.p, A0.p) \
+                or not np.array_equal(A.i[:int(A.p[n])],
+                                      A0.i[:int(A0.p[n])]):
+            raise SlipIncorrectInputError(
+                "all matrices must share one sparsity pattern")
+    bzs = [matrix_copy(b, Kind.DENSE, Type.MPZ, options) for b in bs]
+    nrhs = bzs[0].n
+    if any(bz.m != n or bz.n != nrhs for bz in bzs):
+        raise SlipIncorrectInputError("every b must be n x nrhs")
+    if n == 0:
+        return [SlipMatrix.allocate(Kind.DENSE, Type.MPQ, 0, nrhs)
+                for _ in As]
+    # the reference's group budget: heads*G <= 128 lift lanes and
+    # capacity*G <= 1024 pass lanes, in multiples of 8
+    gmax = min(128 // max(1, heads_per_chunk),
+               1024 // max(pass1_events, pass2_events))
+    gmax = max(8, (gmax // 8) * 8)
+    gmax = int(os.environ.get("SLIP_FUSED_GMAX", gmax))
+    xs = [None] * len(As)
+    for lo in range(0, len(As), gmax):
+        sub = list(range(lo, min(lo + gmax, len(As))))
+        sols = _fused_many_group(
+            [As[i] for i in sub], analysis, [bzs[i] for i in sub],
+            [bs[i] for i in sub], options, dev, heads_per_chunk,
+            pass1_events, pass2_events, nrhs)
+        for j, i in enumerate(sub):
+            xs[i] = sols[j]
+    return xs
+
+
+def _fused_many_group(As, analysis, bzs, bs, options, dev, heads_per_chunk,
+                      pass1_events, pass2_events, nrhs, plan=0):
+    """One group of G = len(As) members. plan 0 runs the transversal-
+    diagonal schedule; if a member's pivot cancels exactly, plan 1 replans
+    the whole family around one member's oracle pivot rows (pinned on the
+    shared Analysis, like the single-system driver); members whose values
+    still cancel on the pinned rows are solved alone."""
+    from ..analyze import analyze
+    G = len(As)
+    A0 = As[0]
+    n = A0.n
+    st = SolveStats(backend="cuda-fused-many", n=n, nnz=int(A0.p[n]),
+                    nrhs=nrhs)
+    q = np.asarray(analysis.q, dtype=np.int64)
+    fr = analysis.sparse_fixed_r
+    key = (heads_per_chunk, pass1_events, pass2_events,
+           None if fr is None else fr.tobytes())
+    with phase_timer(st, "schedule"):
+        # the schedule and stream are value-independent: cached like the
+        # single-system driver's, the stream tensors per device
+        mcache = getattr(analysis, "fused_many_sched_cache", None)
+        if mcache is not None and mcache[0] == key:
+            sched, r, es, tensors = mcache[1]
+        else:
+            q, built = _resolve_order(A0, analysis, q, fr)
+            sched, r = built if built is not None \
+                else build_schedule_best(A0, q, fr)
+            es = build_event_stream(sched, heads_per_chunk, pass1_events,
+                                    pass2_events)
+            tensors = {}
+            analysis.fused_many_sched_cache = (key, (sched, r, es, tensors))
+        streams = tensors.get(str(dev))
+        if streams is None:
+            streams = tensors[str(dev)] = stream_tensors(es, dev)
+        avals_g = []
+        for A in As:
+            Aq = _permute_cols(A, q)
+            avals_g.append([int(Aq.x[idx]) for c in range(n)
+                            for idx in range(int(Aq.p[c]),
+                                             int(Aq.p[c + 1]))])
+    st.lnz, st.unz = es.lnz, es.unz
+    E = es.nnz
+    avhash = hash(tuple(tuple(av) for av in avals_g))
+
+    hb_g = [hadamard_bits(A) for A in As]
+    W_full = max(factor_width(A, hbits=hb) for A, hb in zip(As, hb_g))
+    Ws_full = max(solve_width(A, bz.x, W_full, n, hbits=hb)
+                  for A, bz, hb in zip(As, bzs, hb_g))
+    W_in = max(_input_width(av) for av in avals_g)
+    Wb_in = max(_input_width(bz.x.reshape(-1)) for bz in bzs)
+    if options.max_limbs is not None:
+        W = max(factor_width(A, options.max_limbs, hbits=hb)
+                for A, hb in zip(As, hb_g))
+        Ws = max(solve_width(A, bz.x, W, n, options.max_limbs, hbits=hb)
+                 for A, bz, hb in zip(As, bzs, hb_g))
+    else:
+        W = min(max(2, W_in + 1, min(-(-W_full // 16), 16)), W_full)
+        Ws = min(max(W + 1, Wb_in + 1, min(-(-Ws_full // 16), 32)),
+                 Ws_full)
+        # warm families skip the ladder: converged widths cached per
+        # (schedule, G); the flags keep a stale hint sound
+        mw = getattr(analysis, "fused_many_width_cache", None)
+        if mw is not None and mw[0] == (key, G):
+            W = min(max(W, mw[1]), W_full)
+            Ws = min(max(Ws, mw[2], W + 1), Ws_full)
+
+    Wmin_in = max(2, W_in + 1)
+    segplan = None
+    scache = getattr(analysis, "fused_many_seg_cache", None)
+    if scache is not None and scache[0] == (key, G, W, Ws):
+        segplan = [list(sg) for sg in scache[1]]
+    while True:
+        W8 = _r8(W)
+        Ws8 = _r8(max(Ws, W + 1))
+        WN = _r8(2 * W8 + 2)
+        WNS = _r8(W8 + Ws8 + 2)
+        WI8 = _r8(max(W8, Ws8) + 2)   # GT width: verified short division
+        st.W, st.Ws = W8, Ws8
+        if segplan is None:
+            segplan = plan_segments(es.factor.max_level, n, W, Wmin_in)
+        segments = _merged(segplan)
+        segplan = [list(s) for s in segments]
+        S = len(segments)
+        w0 = segments[0][2]
+        if not family_fits(E, n, G, W8, WI8):
+            # the G member tables exceed the device budget: one member
+            # at a time
+            record(st)
+            return [factorize_solve_cuda_fused(
+                As[g], analyze(As[g], options), bs[g], options, device=dev)
+                for g in range(G)]
+        with phase_timer(st, "pack"):
+            # keyed by the member values too: one Analysis serves many
+            # groups and families
+            vkey = (key, G, w0, avhash, str(dev))
+            vc = getattr(analysis, "fused_many_val_cache", None)
+            if vc is not None and vc[0] == vkey:
+                vstack = vc[1]
+            else:
+                vstack = torch.stack([
+                    val_tensor(av, es.init_pos, E, w0, dev)
+                    for av in avals_g])
+                analysis.fused_many_val_cache = (vkey, vstack)
+            ball = []
+            Wb = 1
+            for bz in bzs:
+                bcols = [[int(bz.x[int(r[k]), c]) for k in range(n)]
+                         for c in range(nrhs)]
+                ball.append(bcols)
+                Wb = max(Wb, _tc_width(
+                    (v for col in bcols for v in col), Ws8))
+            b_stack = torch.from_numpy(np.stack([
+                np.stack([ints_to_tc_rows(col, Wb) for col in bcols])
+                for bcols in ball])).to(dev)
+        with phase_timer(st, "device"):
+            flat = fused_solve_many(n, W8, Ws8, WN, WNS, WI8, G, streams,
+                                    vstack, b_stack,
+                                    segments=segments).cpu().numpy()
+        # the G-aware flat layout (fused_solve_all): per factor segment
+        # [sing*G, ovf*G]; det G*W8; per rhs [sing*G, ovf*G] and X rows
+        # j*G + g. One member runs its right-hand sides as lanes instead:
+        # [sing*nrhs, ovf*nrhs] and X rows j*nrhs + c, once.
+        o = 0
+        g_segsing = np.zeros((G, S), dtype=bool)
+        g_segovf = np.zeros((G, S), dtype=bool)
+        for s in range(S):
+            g_segsing[:, s] = flat[o:o + G] != 0
+            g_segovf[:, s] = flat[o + G:o + 2 * G] != 0
+            o += 2 * G
+        dets = flat[o:o + G * W8].reshape(G, W8)
+        o += G * W8
+        Xs = [[] for _ in range(G)]
+        g_sovf = np.zeros(G, dtype=bool)
+        lanes, runs = (nrhs, 1) if G == 1 else (G, nrhs)
+        for _ in range(runs):
+            sovf = flat[o + lanes:o + 2 * lanes] != 0
+            o += 2 * lanes
+            blk = flat[o:o + n * lanes * Ws8].reshape(n, lanes, Ws8)
+            o += n * lanes * Ws8
+            if G == 1:
+                g_sovf[0] |= bool(sovf.any())
+                Xs[0] = [blk[:, c] for c in range(nrhs)]
+            else:
+                g_sovf |= sovf
+                for g in range(G):
+                    Xs[g].append(blk[:, g])
+        g_sing = g_segsing.any(axis=1)
+        g_ovf = [list(g_segovf[g]) for g in range(G)]
+        f_ovf = bool(g_segovf.any())
+        s_ovf = bool(g_sovf.any())
+        sing = bool(g_sing.any())
+
+        def _member_sing_clean(g):
+            # a member's sing counts only when no overflow hit the same or
+            # an earlier segment of that member (the single-system rule)
+            if not g_sing[g]:
+                return True
+            fs = int(np.argmax(g_segsing[g]))
+            return not any(g_ovf[g][:fs + 1])
+
+        if os.environ.get("SLIP_FUSED_DEBUG"):
+            print(f"[fused-many] plan={plan} G={G} W={W} Ws={Ws} "
+                  f"segs={segments} sing={g_sing.tolist()} "
+                  f"f_ovf={f_ovf} s_ovf={s_ovf}", flush=True)
+        if sing and all(_member_sing_clean(g) for g in range(G)):
+            break                   # genuine cancellation: sing + overflow
+            #                         must climb (2-adically deep pivots)
+        if f_ovf or s_ovf:
+            first_bad = min((so.index(True) for so in g_ovf if any(so)),
+                            default=None)
+            if first_bad is not None and segplan[first_bad][2] < W8:
+                segplan[first_bad][2] = min(2 * segplan[first_bad][2], W8)
+                for s in range(first_bad + 1, S):
+                    segplan[s][2] = max(segplan[s][2],
+                                        segplan[first_bad][2])
+                st.retries += 1
+                continue
+            W2, Ws2 = W, Ws
+            if f_ovf:
+                W2 = min(2 * W, W_full)
+            else:
+                Ws2 = min(2 * Ws, Ws_full)
+            Ws2 = max(Ws2, W2 + 1)
+            if (W2, Ws2) == (W, Ws):
+                if sing:
+                    break
+                raise SlipLimbOverflowError(
+                    "overflow persists at the analytic width bound "
+                    f"(W={W}, Ws={Ws}) — internal invariant violated")
+            if W2 != W:
+                segplan = None
+            W, Ws = W2, Ws2
+            st.retries += 1
+            continue
+        if options.max_limbs is None:
+            analysis.fused_many_width_cache = ((key, G), W, Ws)
+            analysis.fused_many_seg_cache = ((key, G, W, Ws), segments)
+        break
+
+    xs = []
+    with phase_timer(st, "unpack"):
+        for g in range(G):
+            # a member decodes only if nothing flagged on it in the last
+            # run (a sing-triggered stop can leave other members
+            # mid-ladder with overflowed values)
+            if g_sing[g] or any(g_ovf[g]) or g_sovf[g]:
+                xs.append(None)     # solved alone below
+                continue
+            det = tc_rows_to_ints(dets[g:g + 1])[0]
+            x = SlipMatrix.allocate(Kind.DENSE, Type.MPQ, n, nrhs)
+            factor = As[g].scale / bzs[g].scale
+            fnum, fden = factor.numerator, factor.denominator
+            den_all = det * fden
+            for c in range(nrhs):
+                xh = tc_rows_to_ints(Xs[g][c])
+                for k in range(n):
+                    x.x[int(q[k]), c] = _mpq(xh[k] * fnum, den_all)
+            xs.append(x)
+    st.fallback = any(x is None for x in xs)
+    record(st)
+    if plan == 0 and st.fallback and fr is None:
+        # exact cancellation on the shared transversal schedule: replan
+        # the whole family around one cancelling member's oracle pivot
+        # rows (the reference's dynamic pivot search, once on the host);
+        # warm family solves then find the pinned schedule on the Analysis
+        from ..errors import SlipSingularError
+        from ..factorize import factorize
+        g0 = next(g for g in range(G) if xs[g] is None)
+        try:
+            with phase_timer(st, "replan"):
+                F = factorize(As[g0], analysis, options)
+            analysis.sparse_fixed_r = np.asarray(F.row_perm,
+                                                 dtype=np.int64)
+            return _fused_many_group(As, analysis, bzs, bs, options, dev,
+                                     heads_per_chunk, pass1_events,
+                                     pass2_events, nrhs, plan=1)
+        except SlipSingularError:
+            pass                    # a singular member: solved alone
+    for g in range(G):
+        if xs[g] is None:
+            # this member's values cancel even on the pinned rows (or it
+            # is singular): the single-system driver replans around its
+            # own oracle pivots, or raises
+            xs[g] = factorize_solve_cuda_fused(
+                As[g], analyze(As[g], options), bs[g], options, device=dev,
+                heads_per_chunk=heads_per_chunk, pass1_events=pass1_events,
+                pass2_events=pass2_events)
+    return xs

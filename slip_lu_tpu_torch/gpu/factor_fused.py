@@ -1,13 +1,14 @@
 """The fused exact solve's device half: factor stream, solve stream, and
 the one flat result vector.
 
-Counterpart of ``slip_lu_tpu/tpu/factor_fused.py`` for one system (G = 1),
-with right-hand sides run one after another, width segments (the tables
-widen between segments, GT re-lifts in kernel K4, ``gpu/relift.py``) and
-grouped (subtree-local) streams (``ndet``, ``nxx``, the extra value
-slots). The factor stream (kernel K2,
-``csrc/fused.cu:factor_stream_kernel``) runs, per chunk, the pivot heads,
-the Hensel lift of the new pivot inverses, and two passes of
+Counterpart of ``slip_lu_tpu/tpu/factor_fused.py``: one system, or G
+pattern-sharing systems run together (member rows, ``fused_solve_many``),
+with several right-hand sides of one system run as the lanes of one
+solve-stream run, width segments (the tables widen between segments, GT
+re-lifts in kernel K4, ``gpu/relift.py``) and grouped (subtree-local)
+streams (``ndet``, ``nxx``, the extra value slots). The factor stream
+(kernel K2, ``csrc/fused.cu:factor_stream_kernel``) runs, per chunk, the
+pivot heads, the Hensel lift of the new pivot inverses, and two passes of
 
     out = (val[t] * SMT[m] - val[a] * B[b]) / rho[d];
 
@@ -27,12 +28,21 @@ Semantics the two versions share with the reference, bit for bit:
     Hensel product at WQ limbs, re-multiplied by the divisor at WV limbs
     and compared with the numerator, with ``fits_in`` as the overflow
     test; a zero pivot raises ``sing`` and is stored as 1;
-  * flags: int32[8], rows 0 sing, 1 any overflow, 2 heads, 3 pass 1,
-    4 pass 2 (the reference's ``facc`` rows, lane 0).
+  * flags: rows 0 sing, 1 any overflow, 2 heads, 3 pass 1, 4 pass 2 (the
+    reference's ``facc`` rows), one column a member: int32[8] for one
+    member, [8, G] for G;
+  * members (the reference's member-lane batching): a table with member
+    rows keeps logical row r of member g at row r*G + g; members never
+    read each other's rows, so the kernels run member g on block g and
+    the plain versions put the members on a tensor dimension.
 
-The tables use the reference's shapes (rows padded to multiples of 8).
-The wrappers never write their inputs: ``val_in`` is cloned, so a caller
-may cache and reuse it.
+The tables use the reference's shapes (rows padded to multiples of 8 for
+one member, (n+2)*G table rows and E8*G value rows for G). The lane
+count is exact: the reference pads lanes to a multiple of 8 on TPU
+hardware (``lane_group``) and not in interpret mode, and a GPU needs no
+lane alignment, so the flat vector equals the interpret-mode
+reference's. The wrappers never write their inputs: ``val_in`` is
+cloned, so a caller may cache and reuse it.
 """
 
 from __future__ import annotations
@@ -168,42 +178,66 @@ def _stream_args(st: "StreamTensors", factor: bool) -> dict:
 # shared pieces of the plain versions
 # ---------------------------------------------------------------------------
 
-def _col(row: torch.Tensor) -> torch.Tensor:
-    """One table row -> a [W, 1] limb column."""
-    return row.reshape(-1, 1).long()
+def _members(tab: torch.Tensor, m: int) -> torch.Tensor:
+    """A table with m member rows per logical row (m = G, or 1 when the
+    members share it) as an [R, m, W] view: logical row r of member g is
+    row r*m + g. Pad rows past the last whole logical row are left out."""
+    R = tab.shape[0] // m
+    return tab[:R * m].unflatten(0, (R, m))
+
+
+def _lanes(tab3: torch.Tensor, idx, G: int) -> torch.Tensor:
+    """Logical rows idx of an [R, m, W] member view as limb columns
+    [W, len(idx) * G], lane e*G + g; a shared table (m = 1) repeats its
+    row on every member's lane."""
+    rows = tab3[idx]                                       # [k, m, W]
+    return rows.expand(-1, G, -1).reshape(-1, tab3.shape[2]).T.long()
+
+
+def _new_flags(G: int, device) -> torch.Tensor:
+    """Zero flags: int32[8] for one member, [8, G] for G."""
+    return torch.zeros(8 if G == 1 else (8, G), dtype=_I32, device=device)
 
 
 def _pass_ref(ev, cnt, tgt, asrc, bsrc, SMT, GT, TZ, flags, flag_slot, *,
-              WN, WQ, WV, has_ab):
-    """One batched pass (``_pass_body``): gather, compute, scatter."""
+              WN, WQ, WV, has_ab, G=1, a_g=True, tab_g=True):
+    """One batched pass (``_pass_body``): gather, compute, scatter, every
+    member of G on its own lanes. tgt and bsrc have G member rows per
+    logical row; asrc has them if a_g, SMT / GT / TZ if tab_g."""
     if cnt == 0:
         return
+    ms = G if tab_g else 1
     t, m, d, a, b = ev[:, :cnt].long()
+    T3, S3 = _members(tgt, G), _members(SMT, ms)
     Wo = tgt.shape[1]
-    T = tgt[t].T.long()
-    M = SMT[m].T.long()
+    T, M = _lanes(T3, t, G), _lanes(S3, m, G)
     if has_ab:
-        num = dl.signed_mul_sub_mod(T, M, asrc[a].T.long(),
-                                    bsrc[b].T.long(), WN)
+        num = dl.signed_mul_sub_mod(
+            T, M, _lanes(_members(asrc, G if a_g else 1), a, G),
+            _lanes(_members(bsrc, G), b, G), WN)
     else:
         num = dl.signed_mul_mod(T, M, WN)
-    sh = dl.shr_bits(num, TZ[d, :1].T.long())
-    q = dl.mul_mod(sh[:WQ], GT[d, :WQ].T.long(), WQ)
-    v = dl.signed_mul_mod(q, SMT[d].T.long(), WV)
+    sh = dl.shr_bits(num, _lanes(_members(TZ, ms), d, G)[:1])
+    q = dl.mul_mod(sh[:WQ], _lanes(_members(GT, ms), d, G)[:WQ], WQ)
+    v = dl.signed_mul_mod(q, _lanes(S3, d, G), WV)
     bad = (v != dl.sign_extend(num, WV)).any(0)
-    ovf = (bad | ~dl.fits_in(q, Wo)[0]).any().to(_I32)
-    flags[1] |= ovf
-    flags[flag_slot] |= ovf
-    tgt[t] = q[:Wo].T.to(_I32)
+    ovf = (bad | ~dl.fits_in(q, Wo)[0]).view(cnt, G).any(0).to(_I32)
+    fl = flags.view(8, G)             # one column a member
+    fl[1] |= ovf
+    fl[flag_slot] |= ovf
+    T3[t] = q[:Wo].T.reshape(cnt, G, Wo).to(_I32)
 
 
 def _heads_ref(hm, val, SMT, GT, TZ, flags, *, H, W8, WN, WQ, WV,
-               diag=None):
-    """The chunk's pivot heads one after another (``_heads_phase``);
-    returns [(k, rho_w)] of the live heads for the lift. diag: None to
-    read head t's diagonal from val[slot], else from row t of diag (the
-    sharded path's all-reduced diagonals, the reference's ``diag_ext``)."""
+               diag=None, G=1):
+    """The chunk's pivot heads one after another (``_heads_phase``), each
+    on every member of G at once; returns [(k, rho_w [W8, G])] of the live
+    heads for the lift. diag: None to read head t's diagonal from
+    val[slot], else from row t of diag (the sharded path's all-reduced
+    diagonals, the reference's ``diag_ext``; one member)."""
     nh, fl = int(hm[3 * H]), int(hm[3 * H + 3])
+    V3, S3, G3, Z3 = (_members(t, G) for t in (val, SMT, GT, TZ))
+    f2 = flags.view(8, G)             # one column a member
     lifts = []
     R_prev = None
     one = torch.zeros((W8, 1), dtype=torch.int64, device=val.device)
@@ -214,56 +248,61 @@ def _heads_ref(hm, val, SMT, GT, TZ, flags, *, H, W8, WN, WQ, WV,
             continue
         slot, dv = int(hm[H + t]), int(hm[2 * H + t])
         live = t < nh
-        x = _col(val[slot] if diag is None else diag[t])
+        x = (V3[slot] if diag is None else diag[t:t + 1]).T.long()
         if (fl & 256) and dv != k:
             chain = t > 0 and int(hm[t - 1]) == k - 1
-            mult = R_prev[:W8] if chain else _col(SMT[k])
+            mult = R_prev[:W8] if chain else S3[k].T.long()
             num = dl.signed_mul_mod(x, mult, WN)
-            sh = dl.shr_bits(num, TZ[dv, :1].reshape(1, 1).long())
-            R = dl.mul_mod(sh[:WQ], _col(GT[dv, :WQ]), WQ)
-            v = dl.signed_mul_mod(R, _col(SMT[dv]), WV)
-            bad = (v != dl.sign_extend(num, WV)).any()
+            sh = dl.shr_bits(num, Z3[dv, :, :1].T.long())
+            R = dl.mul_mod(sh[:WQ], G3[dv, :, :WQ].T.long(), WQ)
+            v = dl.signed_mul_mod(R, S3[dv].T.long(), WV)
+            bad = (v != dl.sign_extend(num, WV)).any(0)
         else:
             R = dl.sign_extend(x, WQ)
-            bad = torch.zeros((), dtype=torch.bool, device=val.device)
-        zer = dl.is_zero(R)[0, 0]
-        hovf = ~dl.fits_in(R, W8)[0, 0]
+            bad = torch.zeros(G, dtype=torch.bool, device=val.device)
+        zer = dl.is_zero(R)[0]
+        hovf = ~dl.fits_in(R, W8)[0]
         if live:
-            flags[0] |= zer.to(_I32)
-            flags[1] |= (bad | hovf).to(_I32)
-            flags[2] |= (bad | hovf).to(_I32)
+            f2[0] |= zer.to(_I32)
+            f2[1] |= (bad | hovf).to(_I32)
+            f2[2] |= (bad | hovf).to(_I32)
         rho_w = torch.where(zer, one, R[:W8])
-        SMT[k + 1] = rho_w[:, 0].to(_I32)
-        val[slot] = rho_w[:, 0].to(_I32)
+        S3[k + 1] = rho_w.T.to(_I32)
+        V3[slot] = rho_w.T.to(_I32)
         R_prev = R
         if live:
             lifts.append((k, rho_w))
     return lifts
 
 
-def _lift_ref(lifts, GT, TZ, *, WI8):
-    """Hensel lift of the chunk's new pivots (``_lift_phase``)."""
+def _lift_ref(lifts, GT, TZ, *, WI8, G=1):
+    """Hensel lift of the chunk's new pivots (``_lift_phase``), every
+    member's at once."""
     if not lifts:
         return
-    rw = torch.cat([r for _, r in lifts], dim=1)            # [W8, L]
+    rw = torch.cat([r for _, r in lifts], dim=1)            # [W8, L*G]
     tz = dl.trailing_zero_bits(rw)
     odd = dl.shr_bits(dl.sign_extend(rw, WI8), tz)
     inv = dl.inverse_mod(odd, WI8)
     rows = torch.tensor([k + 1 for k, _ in lifts], device=GT.device)
-    GT[rows] = inv.T.to(_I32)
-    TZ[rows] = tz.T.expand(-1, 8).to(_I32)
+    nl = len(lifts)
+    _members(GT, G)[rows] = inv.T.reshape(nl, G, WI8).to(_I32)
+    _members(TZ, G)[rows] = tz.T.reshape(nl, G, 1).expand(-1, -1, 8).to(
+        _I32)
 
 
 # ---------------------------------------------------------------------------
 # K2: the factor stream
 # ---------------------------------------------------------------------------
 
-def _factor_tables(val_in, n, W8, WI8, tables):
-    """The stream's tables: the identity start of a first segment, or
-    copies of the incoming (widened, re-lifted) ones of a later one."""
-    n8 = _r8(n + 2)
+def _factor_tables(val_in, n, W8, WI8, tables, G):
+    """The stream's tables, of the reference's shapes (r8(n + 2) rows for
+    one member, (n + 2) * G member rows for G): the identity start of a
+    first segment (rows 0..G-1, logical row 0 of every member), or copies
+    of the incoming (widened, re-lifted) ones of a later one."""
+    n8 = _r8(n + 2) if G == 1 else (n + 2) * G
     dev = val_in.device
-    flags = torch.zeros(8, dtype=_I32, device=dev)
+    flags = _new_flags(G, dev)
     if tables is not None:
         SMT, GT, TZ = tables
         want = ((n8, W8), (n8, WI8), (n8, 8))
@@ -275,64 +314,84 @@ def _factor_tables(val_in, n, W8, WI8, tables):
     SMT = torch.zeros((n8, W8), dtype=_I32, device=dev)
     GT = torch.zeros((n8, WI8), dtype=_I32, device=dev)
     TZ = torch.zeros((n8, 8), dtype=_I32, device=dev)
-    SMT[0, 0] = 1                     # rho_{-1} = 1, its inverse 1, tz 0
-    GT[0, 0] = 1
+    SMT[:G, 0] = 1                    # rho_{-1} = 1, its inverse 1, tz 0
+    GT[:G, 0] = 1
     return val_in.clone(), SMT, GT, TZ, flags
 
 
 def factor_stream_ref(st: StreamTensors, val_in, n: int, W8: int, WN: int,
-                      WI8: int, tables=None):
+                      WI8: int, tables=None, G: int = 1):
     """Plain version of ``factor_stream`` (any device).
     Returns (val, SMT, GT, TZ, flags)."""
-    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables)
+    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables, G)
     WQ, WV = _moduli(W8, W8, WI8)
     H = st.H
     for c in range(st.fhm_host.shape[0]):
         hm = st.fhm_host[c]
         if hm[3 * H] > 0:
             lifts = _heads_ref(hm, val, SMT, GT, TZ, flags, H=H, W8=W8,
-                               WN=WN, WQ=WQ, WV=WV)
-            _lift_ref(lifts, GT, TZ, WI8=WI8)
+                               WN=WN, WQ=WQ, WV=WV, G=G)
+            _lift_ref(lifts, GT, TZ, WI8=WI8, G=G)
         _pass_ref(st.fev1[c], int(hm[3 * H + 1]), val, val, val, SMT, GT,
-                  TZ, flags, 3, WN=WN, WQ=WQ, WV=WV, has_ab=False)
+                  TZ, flags, 3, WN=WN, WQ=WQ, WV=WV, has_ab=False, G=G)
         _pass_ref(st.fev2[c], int(hm[3 * H + 2]), val, val, val, SMT, GT,
-                  TZ, flags, 4, WN=WN, WQ=WQ, WV=WV, has_ab=True)
+                  TZ, flags, 4, WN=WN, WQ=WQ, WV=WV, has_ab=True, G=G)
     return val, SMT, GT, TZ, flags
 
 
+def _check_members(what: str, G: int, **tables) -> None:
+    """Tables with member rows hold whole logical rows of G members."""
+    if G < 1:
+        raise ValueError(f"{what}: member count G={G}")
+    for name, t in tables.items():
+        if t.shape[0] % G:
+            raise ValueError(f"{what}: {name} has {t.shape[0]} rows, not a "
+                             f"multiple of the {G} members")
+
+
 def factor_stream(st: StreamTensors, val_in, n: int, W8: int, WN: int,
-                  WI8: int, tables=None):
-    """Run the factor stream (K2) over a table of n + 2 rows (n = the
-    determinant row: ``ndet`` for grouped streams) at segment width W8
-    with GT width WI8. tables: None for the first segment, else the
+                  WI8: int, tables=None, G: int = 1):
+    """Run the factor stream (K2) over a table of n + 2 logical rows (n =
+    the determinant row: ``ndet`` for grouped streams) at segment width
+    W8 with GT width WI8. tables: None for the first segment, else the
     incoming (SMT, GT, TZ) at this segment's widths, never written.
+
+    G > 1: G pattern-sharing systems, every table with G member rows per
+    logical row (val_in [E8*G, W8], slot-interleaved: row slot*G + g;
+    tables [(n+2)*G, .]); the kernel runs member g on block g. Flags
+    come back as [8, G], one column a member (int32[8] for G = 1).
     Returns (val, SMT, GT, TZ, flags)."""
     if val_in.device.type == "cpu":
-        return factor_stream_ref(st, val_in, n, W8, WN, WI8, tables)
+        return factor_stream_ref(st, val_in, n, W8, WN, WI8, tables, G)
     _require_cuda(val_in, "factor_stream")
     tabs = {} if tables is None else dict(zip(("SMT", "GT", "TZ"), tables))
     _check_kernel_args("factor_stream", val_in.device,
                        {"val_in": W8, "fhm": 3 * st.H + 4, "fev1": st.C1,
                         "fev2": st.C2}, val_in=val_in, **tabs,
                        **_stream_args(st, True))
+    _check_members("factor_stream", G, val_in=val_in)
     lib = _build.library().lib
-    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables)
+    val, SMT, GT, TZ, flags = _factor_tables(val_in, n, W8, WI8, tables, G)
     WQ, WV = _moduli(W8, W8, WI8)
     L = max(WN, WQ, WV, WI8, W8)
-    obuf = torch.empty((max(st.C1, st.C2), W8), dtype=_I32,
+    obuf = torch.empty((G, max(st.C1, st.C2), W8), dtype=_I32,
                        device=val.device)
     stream = torch.cuda.current_stream(val.device).cuda_stream
     rc = lib.slip_factor_stream(
         st.fhm.data_ptr(), st.fev1.data_ptr(), st.fev2.data_ptr(),
         val.data_ptr(), SMT.data_ptr(), GT.data_ptr(), TZ.data_ptr(),
         flags.data_ptr(), obuf.data_ptr(), st.fhm.shape[0], st.H, st.C1,
-        st.C2, W8, WN, WQ, WV, WI8, L, _nwarps(L), stream)
+        st.C2, W8, WN, WQ, WV, WI8, L, _nwarps(L), G, stream)
     _build.check(rc, "factor_stream")
     factor_stream.launches += 1
+    factor_stream.member_launches += G > 1
+    factor_stream.blocks += G
     return val, SMT, GT, TZ, flags
 
 
-factor_stream.launches = 0
+factor_stream.launches = 0          # every launch
+factor_stream.member_launches = 0   # launches of G > 1 systems
+factor_stream.blocks = 0            # blocks launched: one a member
 
 
 # ---------------------------------------------------------------------------
@@ -340,81 +399,117 @@ factor_stream.launches = 0
 # ---------------------------------------------------------------------------
 
 def solve_stream_ref(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
-                     Ws8: int, WNS: int, WI: int):
+                     Ws8: int, WNS: int, WI: int, G: int = 1,
+                     a_g: bool = True, tab_g: bool = True):
     """Plain version of ``solve_stream`` (any device). Returns (X, flags)."""
     X = X_in.clone()
-    flags = torch.zeros(8, dtype=_I32, device=X.device)
+    flags = _new_flags(G, X.device)
     WQ, WV = _moduli(Ws8, W8, WI)
     for c in range(st.scnt_host.shape[0]):
         cn = st.scnt_host[c]
         _pass_ref(st.sev1[c], int(cn[1]), X, val, X, SMT, GT, TZ, flags, 3,
-                  WN=WNS, WQ=WQ, WV=WV, has_ab=False)
+                  WN=WNS, WQ=WQ, WV=WV, has_ab=False, G=G, a_g=a_g,
+                  tab_g=tab_g)
         _pass_ref(st.sev2[c], int(cn[2]), X, val, X, SMT, GT, TZ, flags, 4,
-                  WN=WNS, WQ=WQ, WV=WV, has_ab=True)
+                  WN=WNS, WQ=WQ, WV=WV, has_ab=True, G=G, a_g=a_g,
+                  tab_g=tab_g)
     return X, flags
 
 
 def solve_stream(st: StreamTensors, val, SMT, GT, TZ, X_in, W8: int,
-                 Ws8: int, WNS: int, WI: int):
-    """Run the solve stream (K3) over X_in [r8(n+1+nxx), Ws8] with GT at
-    width WI (the factor stream's last GT width, re-lifted if the solve
-    quotient needs more). Returns (X, flags)."""
+                 Ws8: int, WNS: int, WI: int, G: int = 1, a_g: bool = True,
+                 tab_g: bool = True):
+    """Run the solve stream (K3) over X_in [r8((n+1+nxx)*G), Ws8] with GT
+    at width WI (the factor stream's last GT width, re-lifted if the solve
+    quotient needs more). Returns (X, flags).
+
+    G > 1: X has G member rows per logical row (row j*G + g). a_g / tab_g
+    say whether the value table / SMT, GT, TZ have member rows too (G
+    pattern-sharing systems) or are shared (G right-hand sides of one
+    system, the reference's right-hand-side lanes). Flags: [8, G]."""
     if X_in.device.type == "cpu":
         return solve_stream_ref(st, val, SMT, GT, TZ, X_in, W8, Ws8, WNS,
-                                WI)
+                                WI, G, a_g, tab_g)
     _require_cuda(X_in, "solve_stream")
     _check_kernel_args("solve_stream", X_in.device,
                        {"val": W8, "SMT": W8, "GT": WI, "TZ": 8,
                         "X_in": Ws8, "scnt": 4, "sev1": st.C1,
                         "sev2": st.C2}, val=val, SMT=SMT, GT=GT, TZ=TZ,
                        X_in=X_in, **_stream_args(st, False))
+    _check_members("solve_stream", G, **(dict(val=val) if a_g else {}),
+                   **(dict(SMT=SMT, GT=GT, TZ=TZ) if tab_g else {}))
     lib = _build.library().lib
     X = X_in.clone()
-    flags = torch.zeros(8, dtype=_I32, device=X.device)
+    flags = _new_flags(G, X.device)
     WQ, WV = _moduli(Ws8, W8, WI)
     L = max(WNS, WQ, WV, WI, Ws8)
-    obuf = torch.empty((max(st.C1, st.C2), Ws8), dtype=_I32,
+    obuf = torch.empty((G, max(st.C1, st.C2), Ws8), dtype=_I32,
                        device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = lib.slip_solve_stream(
         st.scnt.data_ptr(), st.sev1.data_ptr(), st.sev2.data_ptr(),
         val.data_ptr(), SMT.data_ptr(), GT.data_ptr(), TZ.data_ptr(),
         X.data_ptr(), flags.data_ptr(), obuf.data_ptr(), st.scnt.shape[0],
-        st.C1, st.C2, W8, Ws8, WNS, WQ, WV, WI, L, _nwarps(L), stream)
+        st.C1, st.C2, W8, Ws8, WNS, WQ, WV, WI, L, _nwarps(L), G,
+        int(a_g), int(tab_g), stream)
     _build.check(rc, "solve_stream")
     solve_stream.launches += 1
+    solve_stream.member_launches += G > 1 and tab_g
+    solve_stream.lane_launches += G > 1 and not tab_g
+    solve_stream.blocks += G
     return X, flags
 
 
-solve_stream.launches = 0
+solve_stream.launches = 0           # every launch
+solve_stream.member_launches = 0    # launches of G > 1 systems
+solve_stream.lane_launches = 0      # launches of G > 1 right-hand sides
+solve_stream.blocks = 0             # blocks launched: one a member
 
 
 # ---------------------------------------------------------------------------
 # the whole device half
 # ---------------------------------------------------------------------------
 
-def x_tensor(b_col: torch.Tensor, n: int, Ws8: int, nxx: int = 0
+def x_tensor(b: torch.Tensor, n: int, Ws8: int, nxx: int = 0
              ) -> torch.Tensor:
-    """One right-hand side [n, Wb] -> X [r8(n+1+nxx), Ws8], b sign-extended
-    (or cut) from Wb to Ws8 limbs. Row n is the solve stream's dummy, the
+    """Right-hand sides -> X. b: one column [n, Wb], or L lanes [L, n, Wb]
+    (members, or right-hand sides of one system). X is
+    [r8((n+1+nxx)*L), Ws8] with row j*L + l, b sign-extended (or cut)
+    from Wb to Ws8 limbs. Logical row n is the solve stream's dummy, the
     nxx rows after it the grouped stream's clone rows."""
-    Wb = b_col.shape[1]
-    X = torch.zeros((_r8(n + 1 + nxx), Ws8), dtype=_I32, device=b_col.device)
-    X[:n, :min(Wb, Ws8)] = b_col[:, :Ws8]
+    cols = b if b.dim() == 3 else b[None]
+    L, _, Wb = cols.shape
+    rows = cols.transpose(0, 1).reshape(n * L, Wb)
+    X = torch.zeros((_r8((n + 1 + nxx) * L), Ws8), dtype=_I32,
+                    device=b.device)
+    X[:n * L, :min(Wb, Ws8)] = rows[:, :Ws8]
     if Wb < Ws8:
-        fill = torch.where(b_col[:, Wb - 1:Wb] >= 0x8000, 0xFFFF, 0)
-        X[:n, Wb:] = fill.to(_I32)
+        fill = torch.where(rows[:, Wb - 1:Wb] >= 0x8000, 0xFFFF, 0)
+        X[:n * L, Wb:] = fill.to(_I32)
     return X
 
 
 def fused_solve_all(n: int, W8: int, Ws8: int, WN: int, WNS: int, WI8: int,
                     st: StreamTensors, val_in, b_rows, segments=None,
-                    ssegments=None, ndet=None, nxx: int = 0) -> torch.Tensor:
-    """Factor stream, then each right-hand side's solve stream; returns
-    the reference's flat int32 vector for G = 1:
+                    ssegments=None, ndet=None, nxx: int = 0,
+                    G: int = 1) -> torch.Tensor:
+    """Factor stream, then the solve stream; returns the reference's flat
+    int32 vector. For one system (G = 1) and one right-hand side:
 
         [per factor segment: fsing, fovf] [det (W8 limbs)]
-        [per rhs: per solve segment: ssing, sovf; X (n*Ws8)]
+        [per solve segment: ssing, sovf] [X (n*Ws8)]
+
+    With nrhs > 1 right-hand sides of one system (b_rows [nrhs, n, Wb]),
+    all of them run as the lanes of ONE solve-stream run (the reference's
+    right-hand-side lanes: X rows j*nrhs + c, the factored tables shared),
+    and the tail is [per solve segment: ssing*nrhs, sovf*nrhs]
+    [X (n*nrhs*Ws8), rows j*nrhs + c].
+
+    G > 1 pattern-sharing systems (val_in slot-interleaved [E8*G, .], row
+    slot*G + g; b_rows [G, nrhs, n, Wb]): every chunk runs on all G
+    members, and the layout generalizes per member, the reference's:
+    [per factor segment: sing*G, ovf*G] [det: G*W8] [per rhs: per solve
+    segment: sing*G, ovf*G; X: n*G*Ws8, rows j*G + g].
 
     segments / ssegments: (lo, hi, W8s) chunk ranges of the factor / solve
     stream with nondecreasing widths ending at W8 / Ws8 (None: one
@@ -423,9 +518,9 @@ def fused_solve_all(n: int, W8: int, Ws8: int, WN: int, WNS: int, WI8: int,
     (K4); between solve segments X sign-extends (a Hensel inverse truncates
     to an inverse mod any smaller power, so GT needs no re-lift there).
     ndet: the table row of the determinant (grouped streams; default n);
-    nxx: the grouped solve stream's extra X rows. b_rows: [nrhs, n, Wb]
-    int32 limb rows on the same device as val_in. WN and WNS are kept for
-    the reference's signature: every segment derives its own."""
+    nxx: the grouped solve stream's extra X rows. b_rows lies on the same
+    device as val_in. WN and WNS are kept for the reference's signature:
+    every segment derives its own."""
     if ndet is None:
         ndet = n
     if segments is None:
@@ -448,10 +543,10 @@ def fused_solve_all(n: int, W8: int, Ws8: int, WN: int, WNS: int, WI8: int,
             tables = (SMT, GT, TZ)
         val, SMT, GT, TZ, fflags = factor_stream(
             chunk_range(st, lo, hi, True), val, ndet, W8s, _r8(2 * W8s + 2),
-            WIs, tables)
-        parts.append(fflags[:2])
+            WIs, tables, G)
+        parts.append(fflags[:2].reshape(-1))
         prev = (W8s, WIs)
-    parts.append(SMT[ndet, :W8])
+    parts.append(SMT[ndet * G:(ndet + 1) * G, :W8].reshape(-1))
     if ssegments is None:
         ssegments = ((0, st.scnt.shape[0], Ws8),)
     WQs = min(WI8, _r8(Ws8 + 2))      # the solve stream's quotient modulus
@@ -459,19 +554,44 @@ def fused_solve_all(n: int, W8: int, Ws8: int, WN: int, WNS: int, WI8: int,
     if WIf < WQs:
         GT = relift_gt(SMT, GT, TZ, W8, WIf, WQs)
         WIf = WQs
-    for c in range(b_rows.shape[0]):
+    if G == 1:
+        b_rows = b_rows[None]
+    nrhs = b_rows.shape[1]
+    if G == 1 and nrhs > 1:
+        # right-hand-side lanes: one run, X per lane, the tables shared
+        runs = [(b_rows[0], nrhs, False)]
+    else:
+        runs = [(b_rows[:, c], G, True) for c in range(nrhs)]
+    for cols, lanes, own in runs:
         pWs = ssegments[0][2]
-        X = x_tensor(b_rows[c], n, pWs, nxx)
+        X = x_tensor(cols, n, pWs, nxx)
         for lo, hi, Ws_s in ssegments:
             if Ws_s != pWs:
                 X = widen_tc(X, pWs, Ws_s)
             X, sflags = solve_stream(chunk_range(st, lo, hi, False), val,
                                      SMT, GT, TZ, X, W8, Ws_s,
-                                     _r8(W8 + Ws_s + 2), WIf)
-            parts.append(sflags[:2])
+                                     _r8(W8 + Ws_s + 2), WIf, lanes, own,
+                                     own)
+            parts.append(sflags[:2].reshape(-1))
             pWs = Ws_s
-        parts.append(X[:n, :Ws8].reshape(-1))
+        parts.append(X[:n * lanes, :Ws8].reshape(-1))
     return torch.cat(parts)
+
+
+def fused_solve_many(n: int, W8: int, Ws8: int, WN: int, WNS: int,
+                     WI8: int, G: int, st: StreamTensors, val_stack,
+                     b_stack, segments=None) -> torch.Tensor:
+    """G pattern-sharing systems in one device half: the stream is shared,
+    each member brings its value table (val_stack [G, E8, W8s]) and its
+    right-hand sides (b_stack [G, nrhs, n, Wb]), and every chunk runs on
+    all G members (``fused_solve_all`` with G; the reference's
+    ``val_stack`` interleave, row slot*G + g). Returns the G-aware flat
+    vector; a family of one is one system, whose right-hand sides run as
+    lanes."""
+    val_il = val_stack.transpose(0, 1).reshape(-1, val_stack.shape[2])
+    return fused_solve_all(n, W8, Ws8, WN, WNS, WI8, st, val_il,
+                           b_stack[0] if G == 1 else b_stack,
+                           segments=segments, G=G)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ single-chip fused driver on the same device (which replans there), as the
 reference does, and ``SolveStats.fallback`` says so.
 
 The reference's VMEM/HBM budget pair for adopting a grouped stream
-becomes one device-memory budget a rank (``DEVICE_BUDGET``); its HBM
-value-table layout is not ported.
+becomes one device-memory budget a rank (``DEVICE_BUDGET``: a rank's
+value table must fit it at the final segment width); its HBM value-table
+layout is not ported. ``Options(pivot_exact=True)`` pins the rows of the
+reference pivot search, as the reference does (``_pin_scheme_rows``).
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ import torch
 from ..analyze import Analysis
 from ..convert import matrix_copy
 from ..errors import SlipIncorrectInputError, SlipLimbOverflowError
-from ..gpu.backslash_fused import (_device, _dissect_candidate, _merged,
-                                   _mpq, _resolve_order, _tc_width,
-                                   _width_probe, plan_segments)
+from ..gpu.backslash_fused import (DEVICE_BUDGET, _device,
+                                   _dissect_candidate, _merged, _mpq,
+                                   _pin_scheme_rows, _resolve_order,
+                                   _tc_width, _width_probe, plan_segments)
 from ..gpu.bounds import (_input_width, factor_width, hadamard_bits,
                           solve_width)
 from ..gpu.factor_fused import _r8, ints_to_tc_rows, tc_rows_to_ints
@@ -41,10 +44,6 @@ from ..stats import SolveStats, phase_timer, record
 from .factor_fused_shard import fused_sharded_solve, rank_streams
 from .shard import rank, rank_device, world_size
 from .stream_shard_fused import build_sharded_stream
-
-# A rank's value table must fit this much device memory at the final
-# segment width for a grouped stream to be adopted.
-DEVICE_BUDGET = 2 * 1024 ** 3
 
 
 def _ev4d(ev):
@@ -228,11 +227,6 @@ def factorize_solve_cuda_fused_sharded(A: SlipMatrix, analysis: Analysis,
     if A.kind != Kind.CSC or A.type != Type.MPZ:
         raise SlipIncorrectInputError(
             "sharded fused path requires CSC x MPZ input")
-    if options.pivot_exact:
-        raise SlipIncorrectInputError(
-            "pivot_exact is not supported on the sharded cuda-fused path yet "
-            "(pinned pivot schemes are queued in ROADMAP.md); use "
-            "backend='host'")
     n = A.n
     if b.m != n:
         raise SlipIncorrectInputError(
@@ -243,6 +237,8 @@ def factorize_solve_cuda_fused_sharded(A: SlipMatrix, analysis: Analysis,
         return SlipMatrix.allocate(Kind.DENSE, Type.MPQ, 0, nrhs)
     st = SolveStats(backend="cuda-fused-sharded", n=n, nnz=int(A.p[n]),
                     nrhs=nrhs)
+    if options.pivot_exact:
+        _pin_scheme_rows(A, analysis, options)
 
     with phase_timer(st, "schedule"):
         sched, r, ses, avals, q = plan_sharded(

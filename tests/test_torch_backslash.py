@@ -217,7 +217,14 @@ def test_cuda_without_a_card_raises():
 
 
 def test_pivot_exact_is_refused():
+    """pivot_exact is no longer refused: through backslash the fused path
+    pins the scheme's host pivot rows (tests/test_torch_pivot_exact.py
+    holds them to the JAX driver) and solves exactly."""
     A, b = _read(port, "tiny4")
-    with pytest.raises(port.SlipIncorrectInputError, match="pivot_exact"):
-        port.backslash(A, b, port.Type.MPQ, port.Options(pivot_exact=True),
-                       device="cpu")
+    opts = port.Options(pivot=port.Pivot.LARGEST, pivot_exact=True)
+    x = port.backslash(A, b, port.Type.MPQ, opts, device="cpu")
+    st = port.last_stats()
+    assert st.backend == "cuda-fused" and not st.fallback
+    port.check_solution(A, x, b)
+    y = port.backslash(A, b, port.Type.MPQ, opts, backend="host")
+    assert all(x.x[i, 0] == y.x[i, 0] for i in range(x.m))

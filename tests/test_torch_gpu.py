@@ -143,6 +143,138 @@ def test_wide_backslash_on_card_matches_oracle(cuda):
         assert x.x[i, 0] == x_host.x[i, 0], i
 
 
+def _stream_of(name, H, C1=32, C2=128):
+    """(n, stream, A's values in stream order, r, b) of a corpus matrix."""
+    A, b = _read(name)
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    bz = matrix_copy(b, Kind.DENSE, Type.MPZ)
+    n = A.n
+    q = np.asarray(port.analyze(A, port.Options()).q, np.int64)
+    sched, r = build_schedule_best(A, q, None)
+    es = build_event_stream(sched, H, C1, C2)
+    Aq = _permute_cols(A, q)
+    avals = [int(Aq.x[i]) for c in range(n)
+             for i in range(int(Aq.p[c]), int(Aq.p[c + 1]))]
+    return n, es, avals, r, [int(bz.x[int(r[k]), 0]) for k in range(n)]
+
+
+def _widths(W, Ws):
+    W8, Ws8 = ff._r8(W), ff._r8(max(Ws, W + 1))
+    return W8, Ws8, ff._r8(2 * W8 + 2), ff._r8(W8 + Ws8 + 2), \
+        ff._r8(max(W8, Ws8) + 2)
+
+
+@pytest.mark.parametrize("name,G,W,Ws,shifts,ovf", [
+    ("grid8", 1, 16, 24, (0,), [0]),
+    ("grid8", 3, 16, 24, (0, 0, 0), [0, 0, 0]),
+    ("sparse30", 16, 8, 16, (0,) * 16, None),
+    # member 1's products outgrow W8 = 16: only its flag column is up
+    ("grid8", 3, 16, 24, (0, 200, 0), [0, 1, 0]),
+    # wide limbs: W8 = 224 (9 warps a block)
+    ("dense10", 3, 224, 448, (350, 0, 120), [0, 0, 0]),
+])
+def test_member_kernels_match_plain_versions(cuda, name, G, W, Ws, shifts,
+                                             ovf):
+    """K2 and K3 with G members (one block each) against their plain
+    versions: every table, X and the [8, G] flags bit for bit; member 0
+    runs A's own values, the others seeded values on the same pattern
+    (|v| <= 3, some cancel exactly), member g times 2^shifts[g]. Column g
+    of the flags is member g's own one-member run's; ovf: the overflow
+    row, where given."""
+    n, es, avals, r, bcol = _stream_of(name, 2)
+    rng = np.random.default_rng(103)      # members that do not cancel
+    vals = [avals] + [[int(v) for v in rng.integers(1, 4, len(avals))
+                       * rng.choice([-1, 1], len(avals))]
+                      for _ in range(G - 1)]
+    vals = [[v << sh for v in vs] for vs, sh in zip(vals, shifts)]
+    W8, Ws8, WN, WNS, WI8 = _widths(W, Ws)
+    st = ff.stream_tensors(es, cuda)
+    stack = torch.stack([ff.val_tensor(v, es.init_pos, es.nnz, W8, cuda)
+                         for v in vals])
+    val = stack.transpose(0, 1).reshape(-1, W8).contiguous() if G > 1 \
+        else stack[0]
+    before = ff.factor_stream.blocks, ff.solve_stream.blocks
+    fk = ff.factor_stream(st, val, n, W8, WN, WI8, G=G)
+    fp = ff.factor_stream_ref(st, val, n, W8, WN, WI8, G=G)
+    for x, y in zip(fk, fp):
+        assert torch.equal(x, y)
+    bcols = [bcol] + [[int(v) for v in rng.integers(-9, 10, n)]
+                      for _ in range(G - 1)]
+    lanes = torch.from_numpy(np.stack([ff.ints_to_tc_rows(c, 4)
+                                       for c in bcols])).to(cuda)
+    X0 = ff.x_tensor(lanes if G > 1 else lanes[0], n, Ws8)
+    Xk, sk = ff.solve_stream(st, *fk[:4], X0, W8, Ws8, WNS, WI8, G=G)
+    Xp, sp = ff.solve_stream_ref(st, *fk[:4], X0, W8, Ws8, WNS, WI8, G=G)
+    assert torch.equal(Xk, Xp) and torch.equal(sk, sp)
+    assert (ff.factor_stream.blocks, ff.solve_stream.blocks) == \
+        (before[0] + G, before[1] + G)
+    for g in range(G):
+        solo = ff.factor_stream_ref(st, stack[g], n, W8, WN, WI8)[4]
+        assert torch.equal(fk[4].view(8, G)[:, g], solo)
+    assert ovf is None or fk[4].view(8, G)[1].tolist() == ovf
+
+
+@pytest.mark.parametrize("R", [1, 5, 9])
+def test_rhs_lane_solve_kernel_matches_plain_version(cuda, R):
+    """K3 with R right-hand sides of one system (X per lane, the value
+    table and SMT / GT / TZ shared) against its plain version; lane c is
+    the one-column kernel run of right-hand side c."""
+    n, es, avals, r, bcol = _stream_of("tri200", 2)
+    W8, Ws8, WN, WNS, WI8 = _widths(40, 72)
+    st = ff.stream_tensors(es, cuda)
+    tables = ff.factor_stream(st, ff.val_tensor(
+        avals, es.init_pos, es.nnz, W8, cuda), n, W8, WN, WI8)[:4]
+    rng = np.random.default_rng(R)
+    cols = [bcol] + [[int(v) for v in rng.integers(-10**9, 10**9, n)]
+                     for _ in range(R - 1)]
+    lanes = torch.from_numpy(np.stack([ff.ints_to_tc_rows(c, 4)
+                                       for c in cols])).to(cuda)
+    X0 = ff.x_tensor(lanes, n, Ws8)
+    Xk, sk = ff.solve_stream(st, *tables, X0, W8, Ws8, WNS, WI8, G=R,
+                             a_g=False, tab_g=False)
+    Xp, sp = ff.solve_stream_ref(st, *tables, X0, W8, Ws8, WNS, WI8, G=R,
+                                 a_g=False, tab_g=False)
+    assert torch.equal(Xk, Xp) and torch.equal(sk, sp)
+    assert not sk.any()
+    for c in range(R):
+        Xc, _ = ff.solve_stream(st, *tables, ff.x_tensor(lanes[c], n, Ws8),
+                                W8, Ws8, WNS, WI8)
+        assert torch.equal(Xc[:n], Xk[:n * R].view(n, R, Ws8)[:, c])
+
+
+def test_family_and_pivot_exact_on_card_match_oracle(cuda):
+    """A family of five pattern-sharing systems (two right-hand sides
+    each) through factorize_solve_cuda_fused_many, and tri20 under
+    pivot_exact, on the card: exact."""
+    from slip_lu_tpu_torch.gpu.backslash_fused import (
+        factorize_solve_cuda_fused_many)
+    A, b = _read("sparse30")
+    A = matrix_copy(A, Kind.CSC, Type.MPZ)
+    rng = np.random.default_rng(5)
+    nz = int(A.p[A.n])
+    As, bs = [], []
+    for g in range(5):
+        Ag = matrix_copy(A, Kind.CSC, Type.MPZ)
+        if g:
+            Ag.x[:nz] = [int(v) for v in rng.integers(1, 10, nz)
+                         * rng.choice([-1, 1], nz)]
+        As.append(Ag)
+        bs.append(port.SlipMatrix.from_dense(np.array(
+            [[int(v) for v in rng.integers(-9, 10, 2)] for _ in range(A.n)],
+            dtype=object), port.Type.MPZ))
+    before = ff.factor_stream.blocks
+    xs = factorize_solve_cuda_fused_many(As, port.analyze(A, port.Options()),
+                                         bs, device="cuda")
+    assert ff.factor_stream.blocks > before
+    for Ag, bg, x in zip(As, bs, xs):
+        port.check_solution(Ag, x, bg)
+    A, b = _read("tri20")
+    opts = port.Options(pivot=port.Pivot.SMALLEST, pivot_exact=True)
+    x = port.backslash(A, b, port.Type.MPQ, opts, device="cuda")
+    y = port.backslash(A, b, port.Type.MPQ, opts, backend="host")
+    assert all(x.x[i, 0] == y.x[i, 0] for i in range(x.m))
+
+
 def _relift_tables(seed, n8, W8, WIo):
     """SMT, GT_old, TZ of n8 rows: row 0 the identity, then true rho and
     inverse pairs, then seeds that are no inverse, the last rows zero."""
